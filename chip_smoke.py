@@ -1,0 +1,478 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port end to end on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Builds the CUDA kernels from ``octopuszk_tpu_torch/csrc`` into ``build/``,
+holds each kernel against its plain PyTorch version on the card (exact
+equality: the values are integers), times both, then runs the serial
+Groth16 path on BN254a at 2^20 constraints: serial_construct -> setup ->
+prove -> verify, through the package's entry points, and checks one
+variable-base MSM against python-int curve arithmetic.
+
+Output: one JSON object per line (``env``, ``path``, ``oracle``,
+``kernels``), then the card's name and power limit as ``nvidia-smi`` prints
+them, then the result line.  Exits non-zero if there is no CUDA device, if
+the build fails, if any comparison differs or any phase raises.
+
+``--log2 N`` cuts the constraint count to 2^N (never below 2^18 on the
+card: below that the 4-step NTT is not run).  ``--profile`` adds a
+``profile`` line: one more prove under ``torch.profiler``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import random
+import re
+import subprocess
+import sys
+import time
+
+import torch
+
+from octopuszk_tpu_torch.curves import bn254, host_curve
+from octopuszk_tpu_torch.fields.spec import FQ, FR
+from octopuszk_tpu_torch.models.groth16 import prover, setup, verifier
+from octopuszk_tpu_torch.ops import kernels, msm
+from octopuszk_tpu_torch.relations import construct
+
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
+SM_COUNT, INT32_LANES_PER_SM = 132, 64
+MADS_PER_MONT_MUL = 2 * 2 * 8 * 8   # 2*8*8 mad.lo/mad.hi pairs
+ELEM_BYTES = 32
+
+REPLACES = {
+    "butterfly": "octopuszk_tpu/ops/pallas_ops.py:486",
+    "mont_mul": "octopuszk_tpu/ops/pallas_ops.py:451",
+    "mul_sub": "octopuszk_tpu/ops/pallas_ops.py:463",
+    "add_points": "octopuszk_tpu/ops/pallas_ops.py:181",
+    "double_points": "octopuszk_tpu/ops/pallas_ops.py:189",
+    "scan_accumulate_mixed": "octopuszk_tpu/ops/pallas_ops.py:355",
+    "scan_accumulate_mixed_total": "octopuszk_tpu/ops/pallas_ops.py:434",
+}
+SOURCE = {
+    "butterfly": "octopuszk_tpu_torch/csrc/field_kernels.cu",
+    "mont_mul": "octopuszk_tpu_torch/csrc/field_kernels.cu",
+    "mul_sub": "octopuszk_tpu_torch/csrc/field_kernels.cu",
+    "add_points": "octopuszk_tpu_torch/csrc/ec_kernels.cu",
+    "double_points": "octopuszk_tpu_torch/csrc/ec_kernels.cu",
+    "scan_accumulate_mixed": "octopuszk_tpu_torch/csrc/scan_kernels.cu",
+    "scan_accumulate_mixed_total": "octopuszk_tpu_torch/csrc/scan_kernels.cu",
+}
+# field products per curve operation (products + those inside mul_b3)
+MONT_MULS = {("add", 1): 12, ("add", 2): 12 * 3 + 2 * 3,
+             ("double", 1): 8, ("double", 2): 8 * 3 + 3,
+             ("mixed", 1): 11, ("mixed", 2): 11 * 3 + 2 * 3}
+
+
+def emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+def smi(query: str) -> str:
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip()
+
+
+def time_ms(fn, dev, reps: int) -> float:
+    """Mean time of one call: CUDA events around ``reps`` calls after one
+    warm-up call, synchronised."""
+    fn()
+    torch.cuda.synchronize(dev)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize(dev)
+    return start.elapsed_time(end) / reps
+
+
+# ---------------------------------------------------------------------------
+# random inputs (made on the device from a seed)
+# ---------------------------------------------------------------------------
+
+def rand_field(gen, shape, dev):
+    """Canonical field elements int32[8, *shape]: random words with the top
+    word below 2^28, so the value is below 2^252 < p for Fr and Fq."""
+    w = torch.randint(-2**31, 2**31, (8,) + tuple(shape), dtype=torch.int64,
+                      device=dev, generator=gen).to(torch.int32)
+    w[7] &= 0x0FFFFFFF
+    return w
+
+
+def rand_point(gen, cd, shape, dev):
+    """Three (G1) or six (G2) random coordinate components.  The formulas
+    are polynomial, so kernel and plain version must agree on any field
+    elements, on the curve or not."""
+    comps = [rand_field(gen, shape, dev) for _ in range(3 * cd)]
+    if cd == 1:
+        return tuple(comps)
+    return tuple((comps[i], comps[i + 1]) for i in range(0, 6, 2))
+
+
+def rand_packed(gen, cd, n, dev):
+    """A packed base of n rows with some identity (all-zero) rows."""
+    rows = torch.cat([rand_field(gen, (n,), dev) for _ in range(2 * cd)]).T
+    rows = rows.contiguous()
+    rows[torch.rand(n, device=dev, generator=gen) < 0.05] = 0
+    return rows
+
+
+def flat(x):
+    out = []
+    for c in x if isinstance(x, (tuple, list)) else (x,):
+        out.extend(flat(c) if isinstance(c, (tuple, list)) else [c])
+    return out
+
+
+def same(a, b) -> bool:
+    fa, fb = flat(a), flat(b)
+    return len(fa) == len(fb) and all(torch.equal(x, y) for x, y in zip(fa, fb))
+
+
+# ---------------------------------------------------------------------------
+# phase: every kernel against its plain version
+# ---------------------------------------------------------------------------
+
+def bound(bytes_moved: float, mads: float, int32_rate: float):
+    by_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    by_ops = mads / int32_rate * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def check_kernels(dev, log2: int, int32_rate: float, reps: int):
+    """Returns one record per kernel and variant.  ``log2`` sets the shapes
+    to those the main path uses at 2^log2 constraints."""
+    gen = torch.Generator(device=dev).manual_seed(20)
+    records = []
+
+    def record(name, variant, shape, kernel_fn, plain_fn, bytes_moved, mads):
+        """kernel_fn, at ``shape``, is compared with plain_fn on the same
+        inputs and then timed."""
+        got = kernel_fn()
+        for _ in range(2):          # a second pass where the first was short
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            want = plain_fn()
+            torch.cuda.synchronize(dev)
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            if plain_ms > 1000:
+                break
+        ok = same(got, want)
+        diff = max((int((x.to(torch.int64) - y.to(torch.int64)).abs().max())
+                    for x, y in zip(flat(got), flat(want))), default=0)
+        del got, want
+        ms = time_ms(kernel_fn, dev, reps)
+        b_ms, b_by = bound(bytes_moved, mads, int32_rate)
+        records.append({
+            "name": name, "variant": variant, "route": "cuda",
+            "source": SOURCE[name], "replaces": REPLACES[name],
+            "shape": shape, "equal": ok, "max_abs_err": diff, "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "tolerance": "exact"})
+        if not ok:
+            raise SystemExit(f"kernel {name} ({variant}) differs from its "
+                             f"plain version: {records[-1]}")
+
+    n = 1 << log2
+    # (a) butterfly: one 4-step stage pairs half of the 2^log2 elements
+    # (the main path transforms over Fr; the Fq instance is built as well)
+    half = n // 2
+    for spec, tag in ((FR, "Fr"), (FQ, "Fq")):
+        for dif in (True, False):
+            a, b, w = (rand_field(gen, (half,), dev) for _ in range(3))
+            record("butterfly", f"{tag} {'DIF' if dif else 'DIT'}", [8, half],
+                   lambda: kernels.butterfly(spec, a, b, w, dif),
+                   lambda: kernels.butterfly_plain(spec, a, b, w, dif),
+                   5 * ELEM_BYTES * half, MADS_PER_MONT_MUL * half)
+    # (b) mont_mul: Fr at the NTT size, Fq at the packed-query size
+    for spec, tag, cnt in ((FR, "Fr", n), (FQ, "Fq", 2 * n)):
+        a, b = rand_field(gen, (cnt,), dev), rand_field(gen, (cnt,), dev)
+        record("mont_mul", tag, [8, cnt],
+               lambda: kernels.mont_mul(spec, a, b),
+               lambda: kernels.mont_mul_plain(spec, a, b),
+               3 * ELEM_BYTES * cnt, MADS_PER_MONT_MUL * cnt)
+    # (c) mul_sub
+    for spec, tag in ((FR, "Fr"), (FQ, "Fq")):
+        a, b, c = (rand_field(gen, (n,), dev) for _ in range(3))
+        record("mul_sub", tag, [8, n],
+               lambda: kernels.mul_sub(spec, a, b, c),
+               lambda: kernels.mul_sub_plain(spec, a, b, c),
+               4 * ELEM_BYTES * n, MADS_PER_MONT_MUL * n)
+    del a, b, c, w
+
+    # Pippenger plan of the main path: queries padded to 2^(log2+1)
+    _, lanes, chunk_m, _ = msm._plan_packed(2 * n, None, 22)
+    rows = chunk_m // lanes
+    cwin = msm._choose_c_large(chunk_m)
+    num_win = -(-255 // cwin)
+    nb = (1 << (cwin - 1)) + 1
+    for cd, g in ((1, "G1"), (2, "G2")):
+        # (d) add_points at the bucket phase's shape [num_win, 2^(c-1)+1]
+        p = rand_point(gen, cd, (num_win, nb), dev)
+        q = rand_point(gen, cd, (num_win, nb), dev)
+        cnt = num_win * nb
+        record("add_points", g, [8, num_win, nb],
+               lambda: kernels.add_points(g, p, q),
+               lambda: kernels.add_points_plain(g, p, q),
+               9 * cd * ELEM_BYTES * cnt,
+               MONT_MULS["add", cd] * MADS_PER_MONT_MUL * cnt)
+        # (e) double_points: the main path doubles one point per window
+        # (Abel chain) or a single point (window combine, table build)
+        p1 = _first(p)
+        record("double_points", g, [8, num_win],
+               lambda: kernels.double_points(g, p1),
+               lambda: kernels.double_points_plain(g, p1),
+               6 * cd * ELEM_BYTES * num_win,
+               MONT_MULS["double", cd] * MADS_PER_MONT_MUL * num_win)
+        record("double_points", g + " (2^16 points, not a main-path shape)",
+               [8, num_win, nb],
+               lambda: kernels.double_points(g, p),
+               lambda: kernels.double_points_plain(g, p),
+               6 * cd * ELEM_BYTES * cnt,
+               MONT_MULS["double", cd] * MADS_PER_MONT_MUL * cnt)
+        del p, q, p1
+
+        # (f) scan_accumulate_mixed: all windows of the one chunk
+        base = rand_packed(gen, cd, chunk_m, dev)
+        idx2 = torch.stack([
+            (torch.randperm(chunk_m, device=dev, generator=gen) << 1)
+            | torch.randint(0, 2, (chunk_m,), device=dev, generator=gen)
+            for _ in range(num_win)]).to(torch.int32)
+        view = idx2.view(num_win, lanes, rows).transpose(1, 2)
+        live = int((base[(idx2 >> 1).long().reshape(-1)] != 0).any(1).sum())
+        record("scan_accumulate_mixed", g, [num_win, rows, lanes],
+               lambda: kernels.scan_accumulate_mixed(g, base, view),
+               lambda: kernels.scan_accumulate_mixed_plain(g, base, view),
+               base.numel() * 4 + idx2.numel() * 4
+               + 3 * cd * ELEM_BYTES * idx2.numel(),
+               MONT_MULS["mixed", cd] * MADS_PER_MONT_MUL * live)
+        del base, idx2, view
+
+        # (g) scan_accumulate_mixed_total: fixed-base evaluation, one lane
+        # per scalar of the 2^(log2+1) bucket, one row per window
+        w = msm._choose_w_packed(2 * n) if 2 * n >= msm.FIXED_PACKED_MIN \
+            else msm._choose_w(2 * n)
+        outerc = -(-msm.SCALAR_BITS // w)
+        table = rand_packed(gen, cd, outerc << w, dev)
+        table[:: 1 << w] = 0        # digit 0 of every window: the identity
+        digits = torch.randint(0, 1 << w, (outerc, 2 * n), device=dev,
+                               generator=gen)
+        digits += torch.arange(outerc, device=dev)[:, None] << w
+        idx2 = (digits << 1).to(torch.int32)[None]
+        live = int((table[digits.reshape(-1)] != 0).any(1).sum())
+        record("scan_accumulate_mixed_total", g, [1, outerc, 2 * n],
+               lambda: kernels.scan_accumulate_mixed_total(g, table, idx2),
+               lambda: _total_plain_sliced(g, table, idx2),
+               table.numel() * 4 + idx2.numel() * 4
+               + 3 * cd * ELEM_BYTES * 2 * n,
+               MONT_MULS["mixed", cd] * MADS_PER_MONT_MUL * live)
+        del table, digits, idx2
+    return records
+
+
+def _total_plain_sliced(g, table, idx2, lanes_per_slice=1 << 17):
+    """The plain lane totals over all lanes of ``idx2``.  Lanes are
+    independent, so the plain version runs on slices of the lane axis, which
+    bounds its int64 temporaries, and the slices are joined."""
+    parts = [flat(kernels.scan_accumulate_mixed_total_plain(
+        g, table, idx2[:, :, lo:lo + lanes_per_slice]))
+        for lo in range(0, idx2.shape[2], lanes_per_slice)]
+    return [torch.cat(comp, dim=-1) for comp in zip(*parts)]
+
+
+def _first(point):
+    """First slice of a point batch along its last axis."""
+    if isinstance(point, tuple):
+        return tuple(_first(c) for c in point)
+    return point[..., 0].contiguous()
+
+
+# ---------------------------------------------------------------------------
+# phase: the main path
+# ---------------------------------------------------------------------------
+
+def run_path(dev, log2: int):
+    ni = 3
+    stages = {}
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    r1cs, primary, aux = construct.serial_construct(
+        (1 << log2) - ni, ni, seed=5, device=dev)
+    torch.cuda.synchronize(dev)
+    stages["construct"] = time.perf_counter() - t0
+    setup_stages, prove_stages = {}, {}
+    t0 = time.perf_counter()
+    crs = setup.setup(r1cs, seed=6, stage_seconds=setup_stages)
+    stages["setup"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    proof = prover.prove(crs.proving_key, primary, aux, seed=7,
+                         stage_seconds=prove_stages)
+    stages["prove"] = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    t0 = time.perf_counter()
+    accepted = verifier.verify(crs.verification_key, primary, proof)
+    stages["verify"] = time.perf_counter() - t0
+    bad = list(primary)
+    bad[1] = (bad[1] + 1) % FR.p
+    rejected = not verifier.verify(crs.verification_key, bad, proof)
+    on_curve = (host_curve.g1_is_on_curve(proof.a)
+                and host_curve.g2_is_on_curve(proof.b)
+                and host_curve.g1_is_on_curve(proof.c))
+    peak = torch.cuda.max_memory_allocated(dev)
+    out = {"constraints": (1 << log2) - ni, "inputs": ni, "curve": "bn254a",
+           "domain": 1 << log2, "query_rows": int(crs.proving_key.query_a.shape[0]),
+           "verify": accepted, "tampered_input_rejected": rejected,
+           "proof_on_curve": on_curve, "seconds": stages,
+           "setup_seconds": setup_stages, "prove_seconds": prove_stages,
+           "peak_memory_bytes": peak, "launches": launches}
+    emit({"path": out})
+    if not (accepted and rejected and on_curve):
+        raise SystemExit("the main path produced a wrong result")
+    idle = [k for k, v in launches.items() if v == 0]
+    if idle:
+        raise SystemExit(f"kernels never launched on the main path: {idle}")
+    return launches, (crs, primary, aux)
+
+
+def profile_prove(dev, crs, primary, aux):
+    """Two more proves (``--profile``): one timed on the host clock, one
+    under torch.profiler for the device's busy time (the sum over device
+    kernels; tracing slows the host, so the idle share is reckoned against
+    the untraced wall time) and the kernels that take most of it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    t0 = time.perf_counter()
+    prover.prove(crs.proving_key, primary, aux, seed=7)
+    torch.cuda.synchronize(dev)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prover.prove(crs.proving_key, primary, aux, seed=7)
+        torch.cuda.synchronize(dev)
+    traced_wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def self_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and self_us(e) > 0]
+    busy_ms = sum(self_us(e) for e in events) / 1e3
+    top = sorted(events, key=self_us, reverse=True)[:12]
+    emit({"profile": {
+        "what": "prove, warm",
+        "wall_ms": wall_ms, "traced_wall_ms": traced_wall_ms,
+        "device_busy_ms": busy_ms,
+        "device_idle_share": 1 - busy_ms / wall_ms,
+        "device_kernels": len(events),
+        "kernel_launches": sum(e.count for e in events),
+        "top_by_device_time": [
+            {"name": e.key[:80], "calls": e.count, "ms": self_us(e) / 1e3}
+            for e in top]}})
+
+
+# ---------------------------------------------------------------------------
+# phase: one MSM against python-int curve arithmetic
+# ---------------------------------------------------------------------------
+
+def run_oracle(dev, n: int):
+    g1 = bn254.G1
+    rng = random.Random(11)
+    base = g1.point_to_device(
+        g1.host.mul(g1.generator_affine, rng.randrange(1, FR.p)), dev)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    pts = msm.fixed_base_msm(g1, base, rand_field(gen, (n,), dev))
+    packed = msm.points_to_packed(g1, pts)
+    scalars = rand_field(gen, (n,), dev)
+    scalars[:, 0] = 0                           # a zero scalar
+    lanes = min(64, n)
+    got = g1.points_to_host(msm._map_coords(
+        msm.pippenger_msm_packed(g1, packed, scalars, lanes=lanes),
+        lambda c: c[..., None]))[0]
+    from octopuszk_tpu_torch.utils.bigint import words_to_ints
+    host_pts = g1.points_to_host(pts)
+    host_scalars = words_to_ints(scalars.cpu().numpy())
+    want = msm.pippenger_host(g1, host_scalars, host_pts)
+    ok = (got == want and all(host_curve.g1_is_on_curve(p) for p in host_pts))
+    emit({"oracle": {"msm": "pippenger_msm_packed G1", "n": n, "lanes": lanes,
+                     "against": "msm.pippenger_host over host_curve ints",
+                     "equal": ok}})
+    if not ok:
+        raise SystemExit("pippenger_msm_packed disagrees with the host oracle")
+
+
+def ptxas_summary():
+    """Registers and spills per kernel, from the build's ptxas output."""
+    out, cur = [], None
+    for line in kernels.compile_log().splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            # mangled name less its anonymous-namespace prefix and arguments
+            name = re.sub(r"^_ZN\d+_GLOBAL__N__\w+_cu_[0-9a-f]{8}\d\d", "",
+                          m.group(1)).split("Ev")[0]
+            cur = {"entry": name, "registers": None, "spill_stores": 0,
+                   "spill_loads": 0}
+            out.append(cur)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and cur:       # the entry and the functions it calls
+            cur["spill_stores"] += int(m.group(1))
+            cur["spill_loads"] += int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            cur["registers"] = int(m.group(1))
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--log2", type=int, default=20)
+    ap.add_argument("--profile", action="store_true")
+    args = ap.parse_args()
+
+    if not torch.cuda.is_available():
+        print("chip_smoke.py needs a CUDA device", file=sys.stderr)
+        return 1
+    if args.log2 < 18:
+        print("--log2 below 18 does not run the 4-step NTT", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
+    kernels.lib()                               # build + load
+    card = smi("name,power.limit")
+    sm_mhz = float(smi("clocks.max.sm").split()[0])
+    int32_rate = SM_COUNT * INT32_LANES_PER_SM * sm_mhz * 1e6
+    emit({"env": {
+        "python": sys.version.split()[0], "torch": torch.__version__,
+        "cuda": torch.version.cuda, "card": card,
+        "clocks_max_sm_mhz": sm_mhz,
+        "int32_mads_per_s_derived": int32_rate,
+        "build_seconds": kernels.build_seconds, "ptxas": ptxas_summary()}})
+
+    records = check_kernels(dev, args.log2, int32_rate, reps=5)
+    torch.cuda.empty_cache()
+    launches, proving_inputs = run_path(dev, args.log2)
+    if args.profile:
+        profile_prove(dev, *proving_inputs)
+    del proving_inputs
+    run_oracle(dev, 1 << 12)
+    for r in records:
+        r["launches"] = launches[r["name"]]
+    emit({"kernels": records})
+    print(card, flush=True)
+    emit({"total_seconds": time.perf_counter() - t_start})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,122 @@
+// Batched point kernels: (d) add_points, (e) double_points, G1 and G2.
+//
+// They replace the TPU kernels octopuszk_tpu/ops/pallas_ops.py::add_points
+// (_add_kernel) and ::double_points (_double_kernel), instances of
+// pointwise_kernel that trace curves/group_ops.py add / double.
+//
+// Bound on this card: integer multiply throughput and registers.  A G1 add
+// is 12 field products (about 1,700 32-bit multiply-adds) for 288 bytes
+// moved; a G2 add three times the products for twice the bytes.  Design:
+// one thread per point, coordinates word-major so loads coalesce, the whole
+// formula in registers with no intermediate in device memory.  The G2 add
+// keeps about a dozen Fp2 temporaries (192 words) alive, more than the 255
+// registers a thread may hold, so the compiler spills some to local memory;
+// that is accepted here.
+#include <cuda_runtime.h>
+#include "rcb.cuh"
+
+namespace {
+
+constexpr int kThreads = 128;
+
+// one pointer per base-field component of each coordinate:
+// G1 (X, Y, Z), G2 (X.c0, X.c1, Y.c0, Y.c1, Z.c0, Z.c1)
+struct PointPtrs {
+  uint32_t* c[6];
+};
+
+__device__ __forceinline__ void load_coord(G1Coord& c, const PointPtrs& p,
+                                           int ci, size_t n, size_t i) {
+  c = fp_load<FqMod>(p.c[ci], n, i);
+}
+__device__ __forceinline__ void load_coord(G2Coord& c, const PointPtrs& p,
+                                           int ci, size_t n, size_t i) {
+  c.c0 = fp_load<FqMod>(p.c[2 * ci], n, i);
+  c.c1 = fp_load<FqMod>(p.c[2 * ci + 1], n, i);
+}
+__device__ __forceinline__ void store_coord(const G1Coord& c,
+                                            const PointPtrs& p, int ci,
+                                            size_t n, size_t i) {
+  fp_store<FqMod>(p.c[ci], n, i, c);
+}
+__device__ __forceinline__ void store_coord(const G2Coord& c,
+                                            const PointPtrs& p, int ci,
+                                            size_t n, size_t i) {
+  fp_store<FqMod>(p.c[2 * ci], n, i, c.c0);
+  fp_store<FqMod>(p.c[2 * ci + 1], n, i, c.c1);
+}
+
+template <class C>
+__device__ __forceinline__ Pt<C> load_point(const PointPtrs& p, size_t n,
+                                            size_t i) {
+  Pt<C> r;
+  load_coord(r.x, p, 0, n, i);
+  load_coord(r.y, p, 1, n, i);
+  load_coord(r.z, p, 2, n, i);
+  return r;
+}
+
+template <class C>
+__device__ __forceinline__ void store_point(const Pt<C>& r, const PointPtrs& p,
+                                            size_t n, size_t i) {
+  store_coord(r.x, p, 0, n, i);
+  store_coord(r.y, p, 1, n, i);
+  store_coord(r.z, p, 2, n, i);
+}
+
+template <class C>
+__global__ void __launch_bounds__(kThreads)
+add_points_kernel(PointPtrs p, PointPtrs q, PointPtrs out, size_t n) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  store_point(pt_add(load_point<C>(p, n, i), load_point<C>(q, n, i)), out, n, i);
+}
+
+template <class C>
+__global__ void __launch_bounds__(kThreads)
+double_points_kernel(PointPtrs p, PointPtrs out, size_t n) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  store_point(pt_double(load_point<C>(p, n, i)), out, n, i);
+}
+
+PointPtrs make_ptrs(const unsigned long long* addrs, int count) {
+  PointPtrs p;
+  for (int k = 0; k < 6; k++)
+    p.c[k] = k < count ? (uint32_t*)(uintptr_t)addrs[k] : nullptr;
+  return p;
+}
+
+}  // namespace
+
+// group: 1 = G1 (3 addresses per point), 2 = G2 (6 addresses per point).
+// Addresses are word-major int32[8, n] coordinate components.
+
+extern "C" int oz_add_points(int group, const unsigned long long* p,
+                             const unsigned long long* q,
+                             const unsigned long long* out, long long n,
+                             void* stream) {
+  if (n <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int cnt = 3 * group;
+  const unsigned g = (unsigned)(((size_t)n + kThreads - 1) / kThreads);
+  if (group == 1)
+    add_points_kernel<G1Coord><<<g, kThreads, 0, s>>>(make_ptrs(p, cnt), make_ptrs(q, cnt), make_ptrs(out, cnt), (size_t)n);
+  else
+    add_points_kernel<G2Coord><<<g, kThreads, 0, s>>>(make_ptrs(p, cnt), make_ptrs(q, cnt), make_ptrs(out, cnt), (size_t)n);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int oz_double_points(int group, const unsigned long long* p,
+                                const unsigned long long* out, long long n,
+                                void* stream) {
+  if (n <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int cnt = 3 * group;
+  const unsigned g = (unsigned)(((size_t)n + kThreads - 1) / kThreads);
+  if (group == 1)
+    double_points_kernel<G1Coord><<<g, kThreads, 0, s>>>(make_ptrs(p, cnt), make_ptrs(out, cnt), (size_t)n);
+  else
+    double_points_kernel<G2Coord><<<g, kThreads, 0, s>>>(make_ptrs(p, cnt), make_ptrs(out, cnt), (size_t)n);
+  return (int)cudaGetLastError();
+}

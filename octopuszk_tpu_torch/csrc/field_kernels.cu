@@ -1,0 +1,111 @@
+// Elementwise field kernels: (a) butterfly, (b) mont_mul, (c) mul_sub.
+//
+// They replace the TPU kernels octopuszk_tpu/ops/pallas_ops.py::butterfly
+// (_butterfly_kernel), ::mont_mul (_mont_mul_kernel) and ::mul_sub
+// (_mul_sub_kernel), all instances of pointwise_kernel.
+//
+// Bound on this card: device memory.  A butterfly moves 5 coordinates of
+// 32 bytes per element, a product 3, a multiply-subtract 4, against about
+// 150 32-bit multiply-adds each.  Design: one thread per element, operands
+// word-major so that a warp reads 128 contiguous bytes per word, everything
+// between the loads and the stores in registers, one pass over memory.
+#include <cuda_runtime.h>
+#include "field.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+
+template <class M, bool DIF>
+__global__ void __launch_bounds__(kThreads)
+butterfly_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
+                 const uint32_t* __restrict__ w, uint32_t* __restrict__ o0,
+                 uint32_t* __restrict__ o1, size_t n) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const Fp<M> x = fp_load<M>(a, n, i);
+  const Fp<M> y = fp_load<M>(b, n, i);
+  const Fp<M> tw = fp_load<M>(w, n, i);
+  if (DIF) {  // (a + b, (a - b) * w)
+    fp_store<M>(o0, n, i, add(x, y));
+    fp_store<M>(o1, n, i, mul(sub(x, y), tw));
+  } else {    // (a + w * b, a - w * b)
+    const Fp<M> t = mul(y, tw);
+    fp_store<M>(o0, n, i, add(x, t));
+    fp_store<M>(o1, n, i, sub(x, t));
+  }
+}
+
+template <class M>
+__global__ void __launch_bounds__(kThreads)
+mont_mul_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
+                uint32_t* __restrict__ out, size_t n) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  fp_store<M>(out, n, i, mul(fp_load<M>(a, n, i), fp_load<M>(b, n, i)));
+}
+
+template <class M>
+__global__ void __launch_bounds__(kThreads)
+mul_sub_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
+               const uint32_t* __restrict__ c, uint32_t* __restrict__ out,
+               size_t n) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const Fp<M> prod = mul(fp_load<M>(a, n, i), fp_load<M>(b, n, i));
+  fp_store<M>(out, n, i, sub(prod, fp_load<M>(c, n, i)));
+}
+
+inline unsigned blocks_for(size_t n) {
+  return (unsigned)((n + kThreads - 1) / kThreads);
+}
+
+}  // namespace
+
+// field: 0 = Fr, 1 = Fq.  Each function returns cudaGetLastError().
+
+extern "C" int oz_butterfly(int field, int dif, const void* a, const void* b,
+                            const void* w, void* o0, void* o1, long long n,
+                            void* stream) {
+  if (n <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const uint32_t* pa = (const uint32_t*)a;
+  const uint32_t* pb = (const uint32_t*)b;
+  const uint32_t* pw = (const uint32_t*)w;
+  uint32_t* p0 = (uint32_t*)o0;
+  uint32_t* p1 = (uint32_t*)o1;
+  const unsigned g = blocks_for((size_t)n);
+  if (field == 0) {
+    if (dif) butterfly_kernel<FrMod, true><<<g, kThreads, 0, s>>>(pa, pb, pw, p0, p1, (size_t)n);
+    else butterfly_kernel<FrMod, false><<<g, kThreads, 0, s>>>(pa, pb, pw, p0, p1, (size_t)n);
+  } else {
+    if (dif) butterfly_kernel<FqMod, true><<<g, kThreads, 0, s>>>(pa, pb, pw, p0, p1, (size_t)n);
+    else butterfly_kernel<FqMod, false><<<g, kThreads, 0, s>>>(pa, pb, pw, p0, p1, (size_t)n);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int oz_mont_mul(int field, const void* a, const void* b, void* out,
+                           long long n, void* stream) {
+  if (n <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const unsigned g = blocks_for((size_t)n);
+  if (field == 0)
+    mont_mul_kernel<FrMod><<<g, kThreads, 0, s>>>((const uint32_t*)a, (const uint32_t*)b, (uint32_t*)out, (size_t)n);
+  else
+    mont_mul_kernel<FqMod><<<g, kThreads, 0, s>>>((const uint32_t*)a, (const uint32_t*)b, (uint32_t*)out, (size_t)n);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int oz_mul_sub(int field, const void* a, const void* b,
+                          const void* c, void* out, long long n,
+                          void* stream) {
+  if (n <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const unsigned g = blocks_for((size_t)n);
+  if (field == 0)
+    mul_sub_kernel<FrMod><<<g, kThreads, 0, s>>>((const uint32_t*)a, (const uint32_t*)b, (const uint32_t*)c, (uint32_t*)out, (size_t)n);
+  else
+    mul_sub_kernel<FqMod><<<g, kThreads, 0, s>>>((const uint32_t*)a, (const uint32_t*)b, (const uint32_t*)c, (uint32_t*)out, (size_t)n);
+  return (int)cudaGetLastError();
+}

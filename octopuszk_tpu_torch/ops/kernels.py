@@ -1,0 +1,469 @@
+"""The hand-written CUDA kernels: build, load, wrappers, plain versions.
+
+Seven kernels (sources under ``csrc/``) replace the Pallas kernels of
+``octopuszk_tpu/ops/pallas_ops.py``:
+
+=============================  ==================  =======================
+wrapper                        source              replaces (pallas_ops.py)
+=============================  ==================  =======================
+``butterfly``                  field_kernels.cu    ``butterfly``
+``mont_mul``                   field_kernels.cu    ``mont_mul``
+``mul_sub``                    field_kernels.cu    ``mul_sub``
+``add_points``                 ec_kernels.cu       ``add_points``
+``double_points``              ec_kernels.cu       ``double_points``
+``scan_accumulate_mixed``      scan_kernels.cu     ``scan_accumulate_mixed``
+``scan_accumulate_mixed_total``  scan_kernels.cu   ``scan_accumulate_mixed_total``
+=============================  ==================  =======================
+
+Each wrapper takes word tensors (``int32[8, ...]``, see fields/fp.py).  For
+a tensor on the CPU it evaluates the plain PyTorch version beside it
+(``*_plain``); for a tensor on the card it launches its kernel on the
+current stream, without synchronising, or raises.  There is no fallback and
+no size threshold.  ``LAUNCHES`` counts kernel launches per wrapper.
+
+Build: ``nvcc`` compiles each source for ``sm_90a`` into one shared library
+with a plain C interface under ``build/`` at first use, keyed by a hash of
+the sources and of the constants written from ``fields/spec.py``; the
+library is loaded with ``ctypes``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import time
+
+import torch
+
+from octopuszk_tpu_torch.fields import fp
+from octopuszk_tpu_torch.fields.spec import FQ, FR, FieldSpec, HALF_BITS, HALF_MASK
+from octopuszk_tpu_torch.utils.bigint import NUM_WORDS
+
+CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
+BUILD_ROOT = pathlib.Path(__file__).resolve().parent.parent.parent / "build"
+SOURCES = ("field_kernels.cu", "ec_kernels.cu", "scan_kernels.cu")
+HEADERS = ("field.cuh", "fp2.cuh", "rcb.cuh")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+KERNEL_NAMES = ("butterfly", "mont_mul", "mul_sub", "add_points",
+                "double_points", "scan_accumulate_mixed",
+                "scan_accumulate_mixed_total")
+LAUNCHES = dict.fromkeys(KERNEL_NAMES, 0)
+
+_FIELD_IDS = {FR.name: 0, FQ.name: 1}
+_GROUP_IDS = {"G1": 1, "G2": 2}
+
+_lib = None
+build_seconds = None        # wall time of this process's nvcc build, if any
+
+
+def reset_launch_counts():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# build and load
+# ---------------------------------------------------------------------------
+
+def _words_macro(x: int) -> str:
+    return "{" + ", ".join(
+        f"0x{(x >> (32 * k)) & 0xFFFFFFFF:08x}u" for k in range(NUM_WORDS)) + "}"
+
+
+def constants_header() -> str:
+    """constants.cuh: the moduli and Montgomery constants of fields/spec.py
+    and the G2 twist's b3, as preprocessor macros."""
+    from octopuszk_tpu_torch.curves.group_ops import g2_b3
+    b3 = g2_b3()
+    lines = ["// generated from fields/spec.py by ops/kernels.py", "#pragma once"]
+    for tag, spec in (("FR", FR), ("FQ", FQ)):
+        lines += [f"#define {tag}_P_WORDS {_words_macro(spec.p)}",
+                  f"#define {tag}_ONE_WORDS {_words_macro(spec.r_mod_p)}",
+                  f"#define {tag}_N0INV 0x{spec.n0inv32:08x}u"]
+    lines += [f"#define G2_B3_C0_WORDS {_words_macro(FQ.to_mont(b3[0]))}",
+              f"#define G2_B3_C1_WORDS {_words_macro(FQ.to_mont(b3[1]))}"]
+    return "\n".join(lines) + "\n"
+
+
+def _nvcc() -> str:
+    exe = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(exe):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return exe
+
+
+def build() -> pathlib.Path:
+    """Compile the kernels (one nvcc per source, all started together) and
+    link them into one shared library.  Returns its path; a library already
+    built from the same sources is reused."""
+    global build_seconds
+    consts = constants_header()
+    h = hashlib.sha256(consts.encode())
+    for name in HEADERS + SOURCES:
+        h.update((CSRC / name).read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    out_dir = BUILD_ROOT / f"kernels-{h.hexdigest()[:16]}"
+    lib_path = out_dir / "liboctopuszk_kernels.so"
+    if lib_path.exists():
+        return lib_path
+    t0 = time.perf_counter()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / "constants.cuh").write_text(consts)
+    nvcc = _nvcc()
+    procs = []
+    for src in SOURCES:
+        obj = out_dir / (src[:-3] + ".o")
+        log = open(out_dir / (src[:-3] + ".log"), "w")
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-I", str(out_dir), "-c",
+               str(CSRC / src), "-o", str(obj)]
+        procs.append((src, obj, log, subprocess.Popen(
+            cmd, stdout=log, stderr=subprocess.STDOUT)))
+    objs = []
+    failed = []
+    for src, obj, log, proc in procs:
+        rc = proc.wait()
+        log.close()
+        if rc != 0:
+            failed.append(f"{src}:\n" + (out_dir / (src[:-3] + ".log")).read_text())
+        objs.append(str(obj))
+    if failed:
+        raise RuntimeError("nvcc failed\n" + "\n".join(failed))
+    tmp = out_dir / f"liboctopuszk_kernels.{os.getpid()}.so"
+    link = subprocess.run(
+        [nvcc, "-shared", "-o", str(tmp), *objs],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if link.returncode != 0:
+        raise RuntimeError("nvcc link failed\n" + link.stdout)
+    os.replace(tmp, lib_path)
+    build_seconds = time.perf_counter() - t0
+    return lib_path
+
+
+def compile_log() -> str:
+    """What ptxas said (registers, spills) in this build directory."""
+    path = build().parent
+    return "\n".join((path / (s[:-3] + ".log")).read_text() for s in SOURCES)
+
+
+def lib():
+    """The loaded kernel library (built at first use)."""
+    global _lib
+    if _lib is None:
+        cdll = ctypes.CDLL(str(build()))
+        vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        addrs = ctypes.POINTER(ctypes.c_ulonglong)
+        cdll.oz_butterfly.argtypes = [ci, ci, vp, vp, vp, vp, vp, ll, vp]
+        cdll.oz_mont_mul.argtypes = [ci, vp, vp, vp, ll, vp]
+        cdll.oz_mul_sub.argtypes = [ci, vp, vp, vp, vp, ll, vp]
+        cdll.oz_add_points.argtypes = [ci, addrs, addrs, addrs, ll, vp]
+        cdll.oz_double_points.argtypes = [ci, addrs, addrs, ll, vp]
+        cdll.oz_scan_mixed.argtypes = [ci, ci, vp, vp, ll, ll, ll, ci, ci, ci,
+                                       addrs, vp]
+        for fn in (cdll.oz_butterfly, cdll.oz_mont_mul, cdll.oz_mul_sub,
+                   cdll.oz_add_points, cdll.oz_double_points,
+                   cdll.oz_scan_mixed):
+            fn.restype = ci
+        _lib = cdll
+    return _lib
+
+
+def _stream():
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def _check(rc: int, name: str):
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: error {rc}")
+
+
+def _addr_array(tensors):
+    return (ctypes.c_ulonglong * len(tensors))(*[t.data_ptr() for t in tensors])
+
+
+def _field_id(spec: FieldSpec) -> int:
+    try:
+        return _FIELD_IDS[spec.name]
+    except KeyError:
+        raise ValueError(f"no kernel for field {spec.name}") from None
+
+
+def _field_operands(*tensors):
+    """Broadcast word tensors to one shape; check type, layout and device.
+    Returns contiguous tensors."""
+    for t in tensors:
+        if t.dtype != torch.int32 or t.dim() < 1 or t.shape[0] != NUM_WORDS:
+            raise TypeError(
+                f"expected int32[8, ...] words, got {t.dtype}{tuple(t.shape)}")
+        if t.device != tensors[0].device:
+            raise ValueError("operands lie on different devices")
+    shape = fp.broadcast_shape(*tensors)
+    return [t.expand(shape).contiguous() for t in tensors]
+
+
+def _count(t: torch.Tensor) -> int:
+    return t.numel() // NUM_WORDS
+
+
+# ---------------------------------------------------------------------------
+# (b) mont_mul, (c) mul_sub, (a) butterfly
+# ---------------------------------------------------------------------------
+
+def mont_mul_plain(spec: FieldSpec, a, b):
+    """(a * b * R^-1) mod p: CIOS over the sixteen 16-bit halves of the
+    words, held in int64 (one round per limb of a: add a_i * b, add m * p,
+    shift one limb down), then one conditional subtract."""
+    a, b = torch.broadcast_tensors(a, b)
+    al, bl = fp.split16(a), fp.split16(b)
+    p16 = fp.split16(torch.from_numpy(spec.p_words).to(a.device)).reshape(
+        (2 * NUM_WORDS,) + (1,) * (a.dim() - 1))
+    zrow = torch.zeros_like(al[:1])
+    t = torch.zeros_like(al)
+    for i in range(2 * NUM_WORDS):
+        u = t + al[i] * bl
+        m = (u[0] * spec.n0inv16) & HALF_MASK
+        u = u + m * p16
+        carry = u[0] >> HALF_BITS
+        t = torch.cat([u[1:], zrow])
+        t[0] += carry
+    s, cout = fp._ripple(t, HALF_BITS)
+    return fp._i32(fp._cond_sub_p(spec, fp.join16(s), extra_ge=cout != 0))
+
+
+def mont_mul(spec: FieldSpec, a, b):
+    """Elementwise Montgomery product of two broadcastable word tensors."""
+    a, b = _field_operands(a, b)
+    if not a.is_cuda:
+        return mont_mul_plain(spec, a, b)
+    out = torch.empty_like(a)
+    if out.numel() == 0:            # nothing to launch, nothing counted
+        return out
+    rc = lib().oz_mont_mul(_field_id(spec), a.data_ptr(), b.data_ptr(),
+                           out.data_ptr(), _count(a), _stream())
+    _check(rc, "mont_mul")
+    LAUNCHES["mont_mul"] += 1
+    return out
+
+
+def mul_sub_plain(spec: FieldSpec, a, b, c):
+    return fp.sub(spec, mont_mul_plain(spec, a, b), c)
+
+
+def mul_sub(spec: FieldSpec, a, b, c):
+    """a * b - c fused (the witness map's H = A*B - C on the coset)."""
+    a, b, c = _field_operands(a, b, c)
+    if not a.is_cuda:
+        return mul_sub_plain(spec, a, b, c)
+    out = torch.empty_like(a)
+    if out.numel() == 0:
+        return out
+    rc = lib().oz_mul_sub(_field_id(spec), a.data_ptr(), b.data_ptr(),
+                          c.data_ptr(), out.data_ptr(), _count(a), _stream())
+    _check(rc, "mul_sub")
+    LAUNCHES["mul_sub"] += 1
+    return out
+
+
+def butterfly_plain(spec: FieldSpec, a, b, w, dif: bool):
+    if dif:
+        return (fp.add(spec, a, b),
+                mont_mul_plain(spec, fp.sub(spec, a, b), w))
+    t = mont_mul_plain(spec, b, w)
+    return fp.add(spec, a, t), fp.sub(spec, a, t)
+
+
+def butterfly(spec: FieldSpec, a, b, w, dif: bool):
+    """One radix-2 stage on paired operands: DIF (a + b, (a - b) * w),
+    DIT (a + w * b, a - w * b).  Returns (sum, diff)."""
+    a, b, w = _field_operands(a, b, w)
+    if not a.is_cuda:
+        return butterfly_plain(spec, a, b, w, dif)
+    o0, o1 = torch.empty_like(a), torch.empty_like(a)
+    if o0.numel() == 0:
+        return o0, o1
+    rc = lib().oz_butterfly(_field_id(spec), int(bool(dif)), a.data_ptr(),
+                            b.data_ptr(), w.data_ptr(), o0.data_ptr(),
+                            o1.data_ptr(), _count(a), _stream())
+    _check(rc, "butterfly")
+    LAUNCHES["butterfly"] += 1
+    return o0, o1
+
+
+# ---------------------------------------------------------------------------
+# (d) add_points, (e) double_points
+# ---------------------------------------------------------------------------
+
+_PLAIN_OPS = {}
+
+
+def plain_ops(group_name: str):
+    """The coordinate-field namespace of a group over the plain CIOS."""
+    if group_name not in _PLAIN_OPS:
+        from octopuszk_tpu_torch.curves import group_ops
+        make = {"G1": group_ops.make_fp_ops, "G2": group_ops.make_fp2_ops}
+        if group_name not in make:
+            raise ValueError(f"no kernel for group {group_name}")
+        _PLAIN_OPS[group_name] = make[group_name](
+            FQ, group_name=group_name, mul=mont_mul_plain)
+    return _PLAIN_OPS[group_name]
+
+
+def _point_operands(group_name: str, *points):
+    """Flatten points to component lists broadcast to one batch shape."""
+    from octopuszk_tpu_torch.curves.group_ops import flatten_coords
+    cd = _GROUP_IDS[group_name] if group_name in _GROUP_IDS else None
+    if cd is None:
+        raise ValueError(f"no kernel for group {group_name}")
+    flats = [flatten_coords(p) for p in points]
+    for f in flats:
+        if len(f) != 3 * cd:
+            raise TypeError(f"{group_name} point needs {3 * cd} components")
+    comps = _field_operands(*[t for f in flats for t in f])
+    k = 3 * cd
+    return cd, [comps[i * k:(i + 1) * k] for i in range(len(points))]
+
+
+def add_points_plain(group_name: str, p, q):
+    from octopuszk_tpu_torch.curves import group_ops
+    return group_ops.add_formula(plain_ops(group_name), p, q)
+
+
+def add_points(group_name: str, p, q):
+    """Batched complete projective add, P + Q."""
+    from octopuszk_tpu_torch.curves.group_ops import rebuild_coords
+    cd, (fp_, fq_) = _point_operands(group_name, p, q)
+    if not fp_[0].is_cuda:
+        return add_points_plain(group_name, rebuild_coords(fp_, cd),
+                                rebuild_coords(fq_, cd))
+    outs = [torch.empty_like(t) for t in fp_]
+    if outs[0].numel() == 0:
+        return rebuild_coords(outs, cd)
+    rc = lib().oz_add_points(cd, _addr_array(fp_), _addr_array(fq_),
+                             _addr_array(outs), _count(fp_[0]), _stream())
+    _check(rc, "add_points")
+    LAUNCHES["add_points"] += 1
+    return rebuild_coords(outs, cd)
+
+
+def double_points_plain(group_name: str, p):
+    from octopuszk_tpu_torch.curves import group_ops
+    return group_ops.double_formula(plain_ops(group_name), p)
+
+
+def double_points(group_name: str, p):
+    """Batched complete projective double, [2]P."""
+    from octopuszk_tpu_torch.curves.group_ops import rebuild_coords
+    cd, (fp_,) = _point_operands(group_name, p)
+    if not fp_[0].is_cuda:
+        return double_points_plain(group_name, rebuild_coords(fp_, cd))
+    outs = [torch.empty_like(t) for t in fp_]
+    if outs[0].numel() == 0:
+        return rebuild_coords(outs, cd)
+    rc = lib().oz_double_points(cd, _addr_array(fp_), _addr_array(outs),
+                                _count(fp_[0]), _stream())
+    _check(rc, "double_points")
+    LAUNCHES["double_points"] += 1
+    return rebuild_coords(outs, cd)
+
+
+# ---------------------------------------------------------------------------
+# (f) scan_accumulate_mixed, (g) scan_accumulate_mixed_total
+# ---------------------------------------------------------------------------
+
+def _scan_operands(group_name: str, packed, idx2):
+    if group_name not in _GROUP_IDS:
+        raise ValueError(f"no kernel for group {group_name}")
+    cd = _GROUP_IDS[group_name]
+    if (packed.dtype != torch.int32 or packed.dim() != 2
+            or packed.shape[1] != 2 * cd * NUM_WORDS
+            or not packed.is_contiguous()):
+        raise TypeError(
+            f"packed base must be contiguous int32[n, {2 * cd * NUM_WORDS}], "
+            f"got {packed.dtype}{tuple(packed.shape)}")
+    if idx2.dtype != torch.int32 or idx2.dim() != 3:
+        raise TypeError("idx2 must be int32[batch, rows, lanes]")
+    if idx2.device != packed.device:
+        raise ValueError("operands lie on different devices")
+    return cd
+
+
+def _scan_plain(group_name: str, packed, idx2, write_prefix: bool):
+    """Per lane, mixed-add the gathered rows onto a projective running sum
+    that starts at the identity: a Python loop over the rows."""
+    from octopuszk_tpu_torch.curves import group_ops
+    ops = plain_ops(group_name)
+    cd = _scan_operands(group_name, packed, idx2)
+    batch, rows, lanes = idx2.shape
+    e = idx2.to(torch.int64)
+    carry = group_ops.infinity(ops, (batch, lanes), packed.device)
+    prefixes = []
+    for r in range(rows):
+        pts = packed[e[:, r] >> 1]                       # [batch, lanes, C]
+        comps = list(pts.permute(2, 0, 1).reshape(
+            2 * cd, NUM_WORDS, batch, lanes).unbind(0))
+        negb = (e[:, r] & 1) != 0
+        for i in range(cd, 2 * cd):                      # negate Y
+            comps[i] = torch.where(negb, fp.neg(FQ, comps[i]), comps[i])
+        q = group_ops.rebuild_coords(comps, cd)
+        q_inf = ops.is_zero(q[1])                        # Y == 0: identity
+        carry = group_ops.mixed_add(ops, carry, q, q_inf_mask=q_inf)
+        if write_prefix:
+            prefixes.append(carry)
+    if not write_prefix:
+        return carry
+    flat = [torch.stack(cs, dim=2) for cs in zip(
+        *[group_ops.flatten_coords(p) for p in prefixes])]
+    return group_ops.rebuild_coords(flat, cd)
+
+
+def _scan_launch(group_name, packed, idx2, write_prefix, name):
+    from octopuszk_tpu_torch.curves.group_ops import rebuild_coords
+    cd = _scan_operands(group_name, packed, idx2)
+    batch, rows, lanes = idx2.shape
+    shape = ((NUM_WORDS, batch, rows, lanes) if write_prefix
+             else (NUM_WORDS, batch, lanes))
+    outs = [torch.empty(shape, dtype=torch.int32, device=packed.device)
+            for _ in range(3 * cd)]
+    if outs[0].numel() == 0:
+        return rebuild_coords(outs, cd)
+    sb, sr, sl = idx2.stride()
+    rc = lib().oz_scan_mixed(cd, int(write_prefix), packed.data_ptr(),
+                             idx2.data_ptr(), sb, sr, sl, batch, rows, lanes,
+                             _addr_array(outs), _stream())
+    _check(rc, name)
+    LAUNCHES[name] += 1
+    return rebuild_coords(outs, cd)
+
+
+def scan_accumulate_mixed_plain(group_name: str, packed, idx2):
+    return _scan_plain(group_name, packed, idx2, True)
+
+
+def scan_accumulate_mixed(group_name: str, packed, idx2):
+    """Inclusive per-lane prefix sums of gathered affine rows.
+
+    ``packed``: int32[n, 16 | 32], one affine point per row (identity = all
+    zero).  ``idx2``: int32[batch, rows, lanes] (any strides), entries
+    (point index << 1) | negate.  Lane (b, l) sums rows 0..r of its column;
+    returns projective coordinates int32[8, batch, rows, lanes]."""
+    if not packed.is_cuda:
+        return scan_accumulate_mixed_plain(group_name, packed, idx2)
+    return _scan_launch(group_name, packed, idx2, True,
+                        "scan_accumulate_mixed")
+
+
+def scan_accumulate_mixed_total_plain(group_name: str, packed, idx2):
+    return _scan_plain(group_name, packed, idx2, False)
+
+
+def scan_accumulate_mixed_total(group_name: str, packed, idx2):
+    """The same scan, lane totals only: int32[8, batch, lanes]."""
+    if not packed.is_cuda:
+        return scan_accumulate_mixed_total_plain(group_name, packed, idx2)
+    return _scan_launch(group_name, packed, idx2, False,
+                        "scan_accumulate_mixed_total")

@@ -1,0 +1,57 @@
+"""The PyTorch port stands alone: every module imports without CUDA, and
+nothing in it imports JAX or the JAX package."""
+
+import importlib
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PKG = ROOT / "octopuszk_tpu_torch"
+
+MODULES = sorted(
+    ".".join(p.relative_to(ROOT).with_suffix("").parts)
+    for p in PKG.rglob("*.py") if p.name != "__init__.py")
+SOURCES = sorted(PKG.rglob("*.py")) + sorted(PKG.rglob("*.cu*")) + [
+    ROOT / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("mod", MODULES)
+def test_module_imports(mod):
+    importlib.import_module(mod)
+
+
+def test_importing_the_port_loads_no_jax():
+    code = (
+        "import importlib, sys\n"
+        f"mods = {MODULES!r}\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'jaxlib' or m == 'octopuszk_tpu'"
+        " or m.startswith('octopuszk_tpu.')]\n"
+        "assert not bad, bad\n"
+        "import torch\n"
+        "assert not torch.cuda.is_available()\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_source_names_no_jax(path):
+    text = path.read_text()
+    assert not re.search(r"^\s*(import|from)\s+jax\b", text, re.M)
+    assert not re.search(r"\boctopuszk_tpu\.", text)
+    assert not re.search(r"^\s*(import|from)\s+octopuszk_tpu\b(?!_torch)",
+                         text, re.M)
+
+
+def test_entry_points_default_to_the_card():
+    """Asked for the card (device=None) with none present, the entry
+    points raise instead of running on the CPU."""
+    from octopuszk_tpu_torch.relations import construct
+    with pytest.raises(RuntimeError, match="CUDA"):
+        construct.serial_construct(6, 3)
