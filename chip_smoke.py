@@ -6,37 +6,55 @@
 Builds the CUDA kernels from ``octopuszk_tpu_torch/csrc`` into ``build/``,
 holds each kernel against its plain PyTorch version on the card (exact
 equality: the values are integers), times both, then runs the serial
-Groth16 path on BN254a at 2^20 constraints: serial_construct -> setup ->
-prove -> verify, through the package's entry points, and checks one
-variable-base MSM against python-int curve arithmetic.
+Groth16 path on BN254a at 2^20 constraints through the package's entry
+points, in three ways that must give the same proof:
 
-Output: one JSON object per line (``env``, ``path``, ``oracle``,
-``kernels``), then the card's name and power limit as ``nvidia-smi`` prints
-them, then the result line.  Exits non-zero if there is no CUDA device, if
-the build fails, if any comparison differs or any phase raises.
+* ``packed``: serial_construct -> setup -> prove -> verify;
+* ``unpacked``: the same CRS unpacked in memory into projective point
+  batches (``msm.packed_to_points``), proved by the sort-based Pippenger
+  (kernel h);
+* ``streamed``: the same CRS written with ``serialize.save_crs`` to a
+  temporary directory, read back with ``load_crs(stream=True)`` (queries in
+  pinned host memory) and proved by staging them to the card.
+
+Each path runs with the launch counts set to 0 and must launch the kernels
+it is built on.  Two variable-base MSMs (packed and unpacked) are checked
+against python-int curve arithmetic.
+
+Output: one JSON object per line (``env``, one ``path`` per path,
+``oracle``, ``kernels``), then the card's name and power limit as
+``nvidia-smi`` prints them, then the result line.  Exits non-zero if there
+is no CUDA device, if the build fails, if any comparison differs or any
+phase raises.
 
 ``--log2 N`` cuts the constraint count to 2^N (never below 2^18 on the
 card: below that the 4-step NTT is not run).  ``--profile`` adds a
-``profile`` line: one more prove under ``torch.profiler``.
+``profile`` line: one more packed prove under ``torch.profiler``.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import os
 import random
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
 
 from octopuszk_tpu_torch.curves import bn254, host_curve
 from octopuszk_tpu_torch.fields.spec import FQ, FR
-from octopuszk_tpu_torch.models.groth16 import prover, setup, verifier
+from octopuszk_tpu_torch.models.groth16 import (
+    prover, serialize, setup, verifier)
 from octopuszk_tpu_torch.ops import kernels, msm
 from octopuszk_tpu_torch.relations import construct
+
+QUERIES = ("query_a", "query_b_g1", "query_b_g2", "query_h", "delta_abc_g1")
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 SM_COUNT, INT32_LANES_PER_SM = 132, 64
@@ -51,6 +69,7 @@ REPLACES = {
     "double_points": "octopuszk_tpu/ops/pallas_ops.py:189",
     "scan_accumulate_mixed": "octopuszk_tpu/ops/pallas_ops.py:355",
     "scan_accumulate_mixed_total": "octopuszk_tpu/ops/pallas_ops.py:434",
+    "scan_accumulate": "octopuszk_tpu/ops/pallas_ops.py:272",
 }
 SOURCE = {
     "butterfly": "octopuszk_tpu_torch/csrc/field_kernels.cu",
@@ -60,6 +79,15 @@ SOURCE = {
     "double_points": "octopuszk_tpu_torch/csrc/ec_kernels.cu",
     "scan_accumulate_mixed": "octopuszk_tpu_torch/csrc/scan_kernels.cu",
     "scan_accumulate_mixed_total": "octopuszk_tpu_torch/csrc/scan_kernels.cu",
+    "scan_accumulate": "octopuszk_tpu_torch/csrc/scan_full_kernels.cu",
+}
+# the kernels each path is built on: each must launch at least once there
+_PROVE_KERNELS = {"butterfly", "mont_mul", "mul_sub", "add_points",
+                  "double_points"}
+REQUIRED = {
+    "packed": set(REPLACES) - {"scan_accumulate"},
+    "unpacked": _PROVE_KERNELS | {"scan_accumulate"},
+    "streamed": _PROVE_KERNELS | {"scan_accumulate_mixed"},
 }
 # field products per curve operation (products + those inside mul_b3)
 MONT_MULS = {("add", 1): 12, ("add", 2): 12 * 3 + 2 * 3,
@@ -77,19 +105,20 @@ def smi(query: str) -> str:
         check=True, capture_output=True, text=True).stdout.strip()
 
 
-def time_ms(fn, dev, reps: int) -> float:
+def time_ms(fn, dev, reps: int):
     """Mean time of one call: CUDA events around ``reps`` calls after one
-    warm-up call, synchronised."""
+    warm-up call, synchronised.  Returns (ms, the last timed call's
+    output)."""
     fn()
     torch.cuda.synchronize(dev)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(reps):
-        fn()
+        out = fn()
     end.record()
     torch.cuda.synchronize(dev)
-    return start.elapsed_time(end) / reps
+    return start.elapsed_time(end) / reps, out
 
 
 # ---------------------------------------------------------------------------
@@ -152,9 +181,9 @@ def check_kernels(dev, log2: int, int32_rate: float, reps: int):
     records = []
 
     def record(name, variant, shape, kernel_fn, plain_fn, bytes_moved, mads):
-        """kernel_fn, at ``shape``, is compared with plain_fn on the same
-        inputs and then timed."""
-        got = kernel_fn()
+        """kernel_fn, at ``shape``, is timed, and the output of its last
+        timed launch is compared with plain_fn on the same inputs."""
+        ms, got = time_ms(kernel_fn, dev, reps)
         for _ in range(2):          # a second pass where the first was short
             torch.cuda.synchronize(dev)
             t0 = time.perf_counter()
@@ -167,7 +196,6 @@ def check_kernels(dev, log2: int, int32_rate: float, reps: int):
         diff = max((int((x.to(torch.int64) - y.to(torch.int64)).abs().max())
                     for x, y in zip(flat(got), flat(want))), default=0)
         del got, want
-        ms = time_ms(kernel_fn, dev, reps)
         b_ms, b_by = bound(bytes_moved, mads, int32_rate)
         records.append({
             "name": name, "variant": variant, "route": "cuda",
@@ -274,6 +302,24 @@ def check_kernels(dev, log2: int, int32_rate: float, reps: int):
                + 3 * cd * ELEM_BYTES * 2 * n,
                MONT_MULS["mixed", cd] * MADS_PER_MONT_MUL * live)
         del table, digits, idx2
+
+        # (h) scan_accumulate: the unpacked prove's Pippenger, all windows
+        # of one MSM over a 2^(log2+1) query in one launch
+        npts = 2 * n
+        c_u, lanes_u = msm._choose_c(npts), msm._choose_lanes(npts)
+        rows_u, win_u = npts // lanes_u, -(-msm.SCALAR_BITS // c_u)
+        pts = rand_point(gen, cd, (npts,), dev)
+        order = torch.stack([torch.randperm(npts, device=dev, generator=gen)
+                             for _ in range(win_u)]).to(torch.int32)
+        view = order.view(win_u, lanes_u, rows_u).transpose(1, 2)
+        record("scan_accumulate", g, [win_u, rows_u, lanes_u],
+               lambda: kernels.scan_accumulate(g, pts, view),
+               lambda: kernels.scan_accumulate_plain(g, pts, view),
+               3 * cd * ELEM_BYTES * npts + order.numel() * 4
+               + 3 * cd * ELEM_BYTES * order.numel(),
+               MONT_MULS["add", cd] * MADS_PER_MONT_MUL * order.numel())
+        del pts, order, view
+        torch.cuda.empty_cache()
     return records
 
 
@@ -298,25 +344,26 @@ def _first(point):
 # phase: the main path
 # ---------------------------------------------------------------------------
 
-def run_path(dev, log2: int):
-    ni = 3
-    stages = {}
+def drive(dev, name: str, fn):
+    """Run one path with the launch counts and the peak-memory mark set
+    to 0 just before it; returns (its result, its launch counts).  Fails if
+    a kernel the path is built on was never launched."""
+    torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    r1cs, primary, aux = construct.serial_construct(
-        (1 << log2) - ni, ni, seed=5, device=dev)
+    out = fn()
     torch.cuda.synchronize(dev)
-    stages["construct"] = time.perf_counter() - t0
-    setup_stages, prove_stages = {}, {}
-    t0 = time.perf_counter()
-    crs = setup.setup(r1cs, seed=6, stage_seconds=setup_stages)
-    stages["setup"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    proof = prover.prove(crs.proving_key, primary, aux, seed=7,
-                         stage_seconds=prove_stages)
-    stages["prove"] = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
+    idle = sorted(k for k in REQUIRED[name] if launches[k] == 0)
+    if idle:
+        raise SystemExit(f"kernels never launched on the {name} path: {idle}")
+    return out, launches
+
+
+def check_proof(name, crs, primary, proof, want, stages, extra, launches,
+                dev):
+    """Verify, reject a tampered input, compare with the packed path's
+    proof; emit the path line.  Fails on any wrong result."""
     t0 = time.perf_counter()
     accepted = verifier.verify(crs.verification_key, primary, proof)
     stages["verify"] = time.perf_counter() - t0
@@ -326,20 +373,99 @@ def run_path(dev, log2: int):
     on_curve = (host_curve.g1_is_on_curve(proof.a)
                 and host_curve.g2_is_on_curve(proof.b)
                 and host_curve.g1_is_on_curve(proof.c))
-    peak = torch.cuda.max_memory_allocated(dev)
-    out = {"constraints": (1 << log2) - ni, "inputs": ni, "curve": "bn254a",
-           "domain": 1 << log2, "query_rows": int(crs.proving_key.query_a.shape[0]),
-           "verify": accepted, "tampered_input_rejected": rejected,
-           "proof_on_curve": on_curve, "seconds": stages,
-           "setup_seconds": setup_stages, "prove_seconds": prove_stages,
-           "peak_memory_bytes": peak, "launches": launches}
+    equal = want is None or (proof.a, proof.b, proof.c) == (
+        want.a, want.b, want.c)
+    out = {"name": name, **extra, "verify": accepted,
+           "tampered_input_rejected": rejected, "proof_on_curve": on_curve,
+           "proof_equals_packed_path": equal, "seconds": stages,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
+           "launches": launches}
     emit({"path": out})
-    if not (accepted and rejected and on_curve):
-        raise SystemExit("the main path produced a wrong result")
-    idle = [k for k, v in launches.items() if v == 0]
-    if idle:
-        raise SystemExit(f"kernels never launched on the main path: {idle}")
-    return launches, (crs, primary, aux)
+    if not (accepted and rejected and on_curve and equal):
+        raise SystemExit(f"the {name} path produced a wrong result")
+
+
+def run_paths(dev, log2: int):
+    """The three paths at 2^log2 constraints, on one CRS.  Returns the
+    launch counts per path and the packed path's CRS and assignment (for
+    ``--profile``)."""
+    ni = 3
+    counts = {}
+
+    def packed_path():
+        stages, setup_stages, prove_stages = {}, {}, {}
+        t0 = time.perf_counter()
+        r1cs, primary, aux = construct.serial_construct(
+            (1 << log2) - ni, ni, seed=5, device=dev)
+        torch.cuda.synchronize(dev)
+        stages["construct"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        crs = setup.setup(r1cs, seed=6, stage_seconds=setup_stages)
+        stages["setup"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        proof = prover.prove(crs.proving_key, primary, aux, seed=7,
+                             stage_seconds=prove_stages)
+        stages["prove"] = time.perf_counter() - t0
+        return (crs, primary, aux, proof, stages,
+                {"setup_seconds": setup_stages, "prove_seconds": prove_stages})
+
+    (crs, primary, aux, proof, stages, extra), counts["packed"] = drive(
+        dev, "packed", packed_path)
+    pk = crs.proving_key
+    sizes = {"constraints": (1 << log2) - ni, "inputs": ni, "curve": "bn254a",
+             "domain": 1 << log2, "query_rows": int(pk.query_a.shape[0])}
+    check_proof("packed", crs, primary, proof, None, stages,
+                {**sizes, **extra}, counts["packed"], dev)
+
+    def unpacked_path():
+        stages, prove_stages = {}, {}
+        t0 = time.perf_counter()
+        upk = dataclasses.replace(pk, packed=False, **{
+            q: msm.packed_to_points(bn254.G2 if q == "query_b_g2"
+                                    else bn254.G1, getattr(pk, q))
+            for q in QUERIES})
+        torch.cuda.synchronize(dev)
+        stages["unpack"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got = prover.prove(upk, primary, aux, seed=7,
+                           stage_seconds=prove_stages)
+        stages["prove"] = time.perf_counter() - t0
+        return got, stages, {"prove_seconds": prove_stages}
+
+    (uproof, stages, extra), counts["unpacked"] = drive(
+        dev, "unpacked", unpacked_path)
+    check_proof("unpacked", crs, primary, uproof, proof, stages,
+                {**sizes, **extra}, counts["unpacked"], dev)
+
+    def streamed_path():
+        stages, prove_stages = {}, {}
+        with tempfile.TemporaryDirectory() as tmp:
+            path = f"{tmp}/crs.npz"
+            t0 = time.perf_counter()
+            serialize.save_crs(path, crs)
+            stages["save_crs"] = time.perf_counter() - t0
+            file_bytes = os.path.getsize(path)
+            t0 = time.perf_counter()
+            loaded = serialize.load_crs(path, stream=True)
+            torch.cuda.synchronize(dev)
+            stages["load_crs"] = time.perf_counter() - t0
+        lpk = loaded.proving_key
+        if not (all(getattr(lpk, q).is_pinned() for q in QUERIES)
+                and lpk.r1cs.a.val.is_cuda):
+            raise SystemExit("load_crs(stream=True) did not keep the queries "
+                             "in pinned host memory beside a device R1CS")
+        t0 = time.perf_counter()
+        got = prover.prove(lpk, primary, aux, seed=7,
+                           stage_seconds=prove_stages)
+        stages["prove"] = time.perf_counter() - t0
+        return (loaded, got, stages,
+                {"crs_file_bytes": file_bytes, "prove_seconds": prove_stages})
+
+    (loaded, sproof, stages, extra), counts["streamed"] = drive(
+        dev, "streamed", streamed_path)
+    check_proof("streamed", loaded, primary, sproof, proof, stages,
+                {**sizes, **extra}, counts["streamed"], dev)
+    return counts, (crs, primary, aux)
 
 
 def profile_prove(dev, crs, primary, aux):
@@ -400,13 +526,17 @@ def run_oracle(dev, n: int):
     from octopuszk_tpu_torch.utils.bigint import words_to_ints
     host_pts = g1.points_to_host(pts)
     host_scalars = words_to_ints(scalars.cpu().numpy())
+    got_unpacked = g1.points_to_host(msm._map_coords(
+        msm.pippenger_msm(g1, pts, scalars), lambda c: c[..., None]))[0]
     want = msm.pippenger_host(g1, host_scalars, host_pts)
     ok = (got == want and all(host_curve.g1_is_on_curve(p) for p in host_pts))
-    emit({"oracle": {"msm": "pippenger_msm_packed G1", "n": n, "lanes": lanes,
+    ok_unpacked = got_unpacked == want
+    emit({"oracle": {"msm": ["pippenger_msm_packed G1", "pippenger_msm G1"],
+                     "n": n, "lanes": lanes,
                      "against": "msm.pippenger_host over host_curve ints",
-                     "equal": ok}})
-    if not ok:
-        raise SystemExit("pippenger_msm_packed disagrees with the host oracle")
+                     "equal": [ok, ok_unpacked]}})
+    if not (ok and ok_unpacked):
+        raise SystemExit("an MSM disagrees with the host oracle")
 
 
 def ptxas_summary():
@@ -458,13 +588,14 @@ def main() -> int:
 
     records = check_kernels(dev, args.log2, int32_rate, reps=5)
     torch.cuda.empty_cache()
-    launches, proving_inputs = run_path(dev, args.log2)
+    counts, proving_inputs = run_paths(dev, args.log2)
     if args.profile:
         profile_prove(dev, *proving_inputs)
     del proving_inputs
     run_oracle(dev, 1 << 12)
     for r in records:
-        r["launches"] = launches[r["name"]]
+        r["launches_per_path"] = {p: c[r["name"]] for p, c in counts.items()}
+        r["launches"] = sum(r["launches_per_path"].values())
     emit({"kernels": records})
     print(card, flush=True)
     emit({"total_seconds": time.perf_counter() - t_start})

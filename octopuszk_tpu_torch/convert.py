@@ -4,7 +4,10 @@ The reference holds a field element as ``uint32[16, ...]`` 16-bit limbs and
 this package as ``int32[8, ...]`` 32-bit words, both Montgomery with
 R = 2**256, so a value converts by a repack with no arithmetic.  The
 reference's packed CRS rows hold 4 G1 or 2 G2 points per 128-limb row; here
-a row is one point (``int32[n, 16 | 32]``).
+a row is one point (``int32[n, 16 | 32]``).  Each ``*_from_ref`` has a
+``*_to_ref`` beside it that gives the reference's layout back as numpy
+arrays (models/groth16/serialize.py writes the reference's file format
+through them).
 
 Everything here takes the reference's objects as numpy arrays and host
 ints, or as objects whose array attributes ``np.asarray`` accepts; this
@@ -14,6 +17,8 @@ the reference's.
 """
 
 from __future__ import annotations
+
+import types
 
 import numpy as np
 import torch
@@ -89,6 +94,24 @@ def sparse_from_ref(m, device=None) -> SparseMatrix:
         num_rows=int(m.num_rows), num_cols=int(m.num_cols))
 
 
+def sparse_to_ref(m: SparseMatrix) -> types.SimpleNamespace:
+    """The reference's SparseMatrix fields as numpy arrays: int32 indices,
+    uint32[16, nnz] limbs."""
+    idx = lambda a: a.cpu().numpy().astype(np.int32)
+    return types.SimpleNamespace(
+        row=idx(m.row), col=idx(m.col), val=field_to_ref(m.val),
+        row_chunk=idx(m.row_chunk), row_chunk_seg=idx(m.row_chunk_seg),
+        col_chunk=idx(m.col_chunk), col_chunk_seg=idx(m.col_chunk_seg),
+        num_rows=m.num_rows, num_cols=m.num_cols)
+
+
+def r1cs_to_ref(r: R1CS) -> types.SimpleNamespace:
+    return types.SimpleNamespace(
+        a=sparse_to_ref(r.a), b=sparse_to_ref(r.b), c=sparse_to_ref(r.c),
+        num_constraints=r.num_constraints, num_inputs=r.num_inputs,
+        num_variables=r.num_variables)
+
+
 def r1cs_from_ref(r, device=None) -> R1CS:
     return R1CS(
         a=sparse_from_ref(r.a, device), b=sparse_from_ref(r.b, device),
@@ -97,22 +120,55 @@ def r1cs_from_ref(r, device=None) -> R1CS:
         num_variables=int(r.num_variables))
 
 
-def proving_key_from_ref(pk, curve=None, device=None) -> ProvingKey:
-    """A reference proving key with packed queries -> this package's."""
+QUERIES = ("delta_abc_g1", "query_a", "query_b_g1", "query_b_g2", "query_h")
+
+
+def _query_group(name: str, curve):
+    return curve.g2 if name == "query_b_g2" else curve.g1
+
+
+def proving_key_from_ref(pk, curve=None, device=None,
+                         stream: bool = False) -> ProvingKey:
+    """A reference proving key -> this package's: packed queries (128-limb
+    rows) repack to one point per row, unpacked queries (point batches of
+    limb arrays) to word tensors; ``delta_abc_full`` carries over.  The
+    R1CS goes to ``device``; with ``stream`` the packed queries stay in host
+    memory (pinned when ``device`` is the card), from where the prover
+    stages them chunk by chunk."""
     if curve is None:
         from octopuszk_tpu_torch.curves.family import bn254a
         curve = bn254a()
-    if not pk.packed or getattr(pk, "delta_abc_full", False):
-        raise ValueError("only the serial setup's packed key converts")
-    g1 = lambda q: packed_from_ref(q, curve.g1, device)
+    device = _device.resolve(device)
+    packed = bool(pk.packed)
+    streamed = bool(stream) and packed
+    qdev = torch.device("cpu") if streamed else device
+
+    def query(name):
+        q = getattr(pk, name)
+        if not packed:
+            return points_from_ref(q, qdev)
+        t = packed_from_ref(q, _query_group(name, curve), qdev)
+        return t.pin_memory() if streamed and device.type == "cuda" else t
+
     return ProvingKey(
         alpha_g1=pk.alpha_g1, beta_g1=pk.beta_g1, beta_g2=pk.beta_g2,
         delta_g1=pk.delta_g1, delta_g2=pk.delta_g2,
-        delta_abc_g1=g1(pk.delta_abc_g1), query_a=g1(pk.query_a),
-        query_b_g1=g1(pk.query_b_g1),
-        query_b_g2=packed_from_ref(pk.query_b_g2, curve.g2, device),
-        query_h=g1(pk.query_h), r1cs=r1cs_from_ref(pk.r1cs, device),
-        packed=True)
+        r1cs=r1cs_from_ref(pk.r1cs, device), packed=packed,
+        delta_abc_full=bool(getattr(pk, "delta_abc_full", False)),
+        **{name: query(name) for name in QUERIES})
+
+
+def proving_key_to_ref(pk: ProvingKey) -> types.SimpleNamespace:
+    """This package's proving key -> the reference's ProvingKey fields as
+    numpy arrays (packed 128-limb rows or point batches of uint32[16, n]
+    limbs, the R1CS as ``r1cs_to_ref``) and host values."""
+    conv = packed_to_ref if pk.packed else points_to_ref
+    return types.SimpleNamespace(
+        alpha_g1=pk.alpha_g1, beta_g1=pk.beta_g1, beta_g2=pk.beta_g2,
+        delta_g1=pk.delta_g1, delta_g2=pk.delta_g2,
+        r1cs=r1cs_to_ref(pk.r1cs), packed=pk.packed,
+        delta_abc_full=pk.delta_abc_full,
+        **{name: conv(getattr(pk, name)) for name in QUERIES})
 
 
 def verification_key_from_ref(vk) -> VerificationKey:

@@ -1,10 +1,13 @@
 """Groth16 prover, single-device path.
 
 QAP witness map (the 7-NTT pipeline), then variable-base MSMs over queryA /
-queryB (G1 + G2 as one double MSM sharing digits and sort) / queryH /
-deltaABC on the packed CRS, then O(1) host group algebra assembling
-(A, B, C).  Randomness is ``random.Random(seed)`` in the JAX package's
-order, so the same seed and key give the same proof.
+queryB / queryH / deltaABC, then O(1) host group algebra assembling
+(A, B, C).  The MSMs follow the key's layout: packed queries (queryB's G1
+and G2 as one double MSM sharing digits and sort), on the device or
+streamed there from host memory one chunk at a time, or unpacked point
+batches (the sort-based Pippenger, one MSM per query).
+Randomness is ``random.Random(seed)`` in the JAX package's order, so the
+same seed and key give the same proof.
 """
 
 from __future__ import annotations
@@ -26,25 +29,36 @@ def _single_to_host(grp, p):
     return grp.points_to_host(jac._map_coords(p, lambda c: c[..., None]))[0]
 
 
+def _queries(pk: ProvingKey):
+    return (pk.query_a, pk.query_b_g1, pk.query_b_g2, pk.query_h,
+            pk.delta_abc_g1)
+
+
 def prove(pk: ProvingKey, primary, auxiliary, seed: int = 2,
           config=None, curve=None, stage_seconds=None) -> Proof:
     """primary/auxiliary: host int assignments (primary[0] == 1).  Runs on
-    the device the key's tensors lie on.  ``config.debug`` turns on the
-    satisfiability and degree checks; ``stage_seconds`` is an optional dict
-    that receives each stage's wall time."""
+    the device the key's R1CS lies on.  Packed queries lie there or in host
+    memory (``serialize.load_crs(stream=True)``), from where the MSMs stage
+    them chunk by chunk; unpacked queries must lie there.
+    ``config.debug`` turns on the satisfiability and degree checks;
+    ``stage_seconds`` is an optional dict that receives each stage's wall
+    time."""
     if curve is None:
         from octopuszk_tpu_torch.curves.family import bn254a
         curve = bn254a()
+    r1cs = pk.r1cs
+    dev = r1cs.a.val.device
     if not pk.packed:
-        raise NotImplementedError("only packed proving keys are supported")
+        where = {jac.leaf(q).device for q in _queries(pk)}
+        if where != {dev}:
+            raise ValueError(f"the queries lie on {sorted(map(str, where))}, "
+                             f"the R1CS on {dev}")
     fr = curve.fr
     g1_grp, g2_grp = curve.g1, curve.g2
     rng = random.Random(seed)
     r = rng.randrange(fr.p)
     s = rng.randrange(fr.p)
 
-    r1cs = pk.r1cs
-    dev = pk.query_a.device
     t0 = time.perf_counter()
 
     def mark(label):
@@ -70,20 +84,34 @@ def prove(pk: ProvingKey, primary, auxiliary, seed: int = 2,
     ni = r1cs.num_inputs
     mark("witness-map")
 
-    eval_a = _single_to_host(
-        g1_grp, msm.pippenger_msm_packed(g1_grp, pk.query_a, z_raw))
+    if pk.delta_abc_full:
+        # all m variables: zero the primary scalars instead of slicing
+        abc_scal = z_raw.clone()
+        abc_scal[:, :ni] = 0
+    else:
+        abc_scal = z_raw[:, ni:].contiguous()
+
+    if pk.packed:
+        run_single = msm.pippenger_msm_packed
+
+        def run_double(q1, q2, x):
+            return msm.pippenger_double_msm_packed(g1_grp, g2_grp, q1, q2, x)
+    else:
+        run_single = msm.pippenger_msm
+
+        def run_double(q1, q2, x):
+            return run_single(g1_grp, q1, x), run_single(g2_grp, q2, x)
+
+    eval_a = _single_to_host(g1_grp, run_single(g1_grp, pk.query_a, z_raw))
     mark("msm-A(g1)")
-    b1, b2 = msm.pippenger_double_msm_packed(
-        g1_grp, g2_grp, pk.query_b_g1, pk.query_b_g2, z_raw)
+    b1, b2 = run_double(pk.query_b_g1, pk.query_b_g2, z_raw)
     eval_b1 = _single_to_host(g1_grp, b1)
     eval_b2 = _single_to_host(g2_grp, b2)
     mark("msm-B(g1+g2)")
-    eval_h = _single_to_host(
-        g1_grp, msm.pippenger_msm_packed(g1_grp, pk.query_h, h_raw))
+    eval_h = _single_to_host(g1_grp, run_single(g1_grp, pk.query_h, h_raw))
     mark("msm-H(g1)")
     eval_abc = _single_to_host(
-        g1_grp, msm.pippenger_msm_packed(
-            g1_grp, pk.delta_abc_g1, z_raw[:, ni:].contiguous()))
+        g1_grp, run_single(g1_grp, pk.delta_abc_g1, abc_scal))
     mark("msm-deltaABC(g1)")
 
     g1, g2 = g1_grp.host, g2_grp.host

@@ -1,19 +1,20 @@
 """The hand-written CUDA kernels: build, load, wrappers, plain versions.
 
-Seven kernels (sources under ``csrc/``) replace the Pallas kernels of
-``octopuszk_tpu/ops/pallas_ops.py``:
+Eight kernels (sources under ``csrc/``) replace the Pallas kernels of the
+same names in ``octopuszk_tpu/ops/pallas_ops.py``:
 
-=============================  ==================  =======================
-wrapper                        source              replaces (pallas_ops.py)
-=============================  ==================  =======================
-``butterfly``                  field_kernels.cu    ``butterfly``
-``mont_mul``                   field_kernels.cu    ``mont_mul``
-``mul_sub``                    field_kernels.cu    ``mul_sub``
-``add_points``                 ec_kernels.cu       ``add_points``
-``double_points``              ec_kernels.cu       ``double_points``
-``scan_accumulate_mixed``      scan_kernels.cu     ``scan_accumulate_mixed``
-``scan_accumulate_mixed_total``  scan_kernels.cu   ``scan_accumulate_mixed_total``
-=============================  ==================  =======================
+=================================  ====================
+wrapper                            source
+=================================  ====================
+``butterfly``                      field_kernels.cu
+``mont_mul``                       field_kernels.cu
+``mul_sub``                        field_kernels.cu
+``add_points``                     ec_kernels.cu
+``double_points``                  ec_kernels.cu
+``scan_accumulate_mixed``          scan_kernels.cu
+``scan_accumulate_mixed_total``    scan_kernels.cu
+``scan_accumulate``                scan_full_kernels.cu
+=================================  ====================
 
 Each wrapper takes word tensors (``int32[8, ...]``, see fields/fp.py).  For
 a tensor on the CPU it evaluates the plain PyTorch version beside it
@@ -45,14 +46,15 @@ from octopuszk_tpu_torch.utils.bigint import NUM_WORDS
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parent.parent.parent / "build"
-SOURCES = ("field_kernels.cu", "ec_kernels.cu", "scan_kernels.cu")
+SOURCES = ("field_kernels.cu", "ec_kernels.cu", "scan_kernels.cu",
+           "scan_full_kernels.cu")
 HEADERS = ("field.cuh", "fp2.cuh", "rcb.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 KERNEL_NAMES = ("butterfly", "mont_mul", "mul_sub", "add_points",
                 "double_points", "scan_accumulate_mixed",
-                "scan_accumulate_mixed_total")
+                "scan_accumulate_mixed_total", "scan_accumulate")
 LAUNCHES = dict.fromkeys(KERNEL_NAMES, 0)
 
 _FIELD_IDS = {FR.name: 0, FQ.name: 1}
@@ -165,9 +167,11 @@ def lib():
         cdll.oz_double_points.argtypes = [ci, addrs, addrs, ll, vp]
         cdll.oz_scan_mixed.argtypes = [ci, ci, vp, vp, ll, ll, ll, ci, ci, ci,
                                        addrs, vp]
+        cdll.oz_scan_full.argtypes = [ci, addrs, ll, vp, ll, ll, ll, ci, ci,
+                                      ci, addrs, vp]
         for fn in (cdll.oz_butterfly, cdll.oz_mont_mul, cdll.oz_mul_sub,
                    cdll.oz_add_points, cdll.oz_double_points,
-                   cdll.oz_scan_mixed):
+                   cdll.oz_scan_mixed, cdll.oz_scan_full):
             fn.restype = ci
         _lib = cdll
     return _lib
@@ -467,3 +471,65 @@ def scan_accumulate_mixed_total(group_name: str, packed, idx2):
         return scan_accumulate_mixed_total_plain(group_name, packed, idx2)
     return _scan_launch(group_name, packed, idx2, False,
                         "scan_accumulate_mixed_total")
+
+
+# ---------------------------------------------------------------------------
+# (h) scan_accumulate
+# ---------------------------------------------------------------------------
+
+def _scan_full_operands(group_name: str, points, idx):
+    """Check a point batch [n] and an index int32[batch, rows, lanes];
+    returns (coord_dim, contiguous components)."""
+    cd, (comps,) = _point_operands(group_name, points)
+    if comps[0].dim() != 2:
+        raise TypeError("points must be a flat batch of int32[8, n] "
+                        f"components, got {tuple(comps[0].shape)}")
+    if idx.dtype != torch.int32 or idx.dim() != 3:
+        raise TypeError("idx must be int32[batch, rows, lanes]")
+    if idx.device != comps[0].device:
+        raise ValueError("operands lie on different devices")
+    return cd, comps
+
+
+def scan_accumulate_plain(group_name: str, points, idx):
+    """Per lane, full-add the indexed points onto a projective running sum
+    that starts at the identity: a Python loop over the rows."""
+    from octopuszk_tpu_torch.curves import group_ops
+    ops = plain_ops(group_name)
+    cd, comps = _scan_full_operands(group_name, points, idx)
+    batch, rows, lanes = idx.shape
+    e = idx.to(torch.int64)
+    carry = group_ops.infinity(ops, (batch, lanes), comps[0].device)
+    prefixes = []
+    for r in range(rows):
+        q = group_ops.rebuild_coords([c[:, e[:, r]] for c in comps], cd)
+        carry = group_ops.add_formula(ops, carry, q)
+        prefixes.append(group_ops.flatten_coords(carry))
+    flat = [torch.stack(cs, dim=2) for cs in zip(*prefixes)]
+    return group_ops.rebuild_coords(flat, cd)
+
+
+def scan_accumulate(group_name: str, points, idx):
+    """Inclusive per-lane prefix sums of indexed projective points.
+
+    ``points``: a projective batch of n points (``int32[8, n]``
+    components).  ``idx``: int32[batch, rows, lanes] (any strides) of point
+    indices.  Lane (b, l) sums the points of rows 0..r of its column with
+    the complete full add; returns projective coordinates
+    int32[8, batch, rows, lanes]."""
+    from octopuszk_tpu_torch.curves.group_ops import rebuild_coords
+    cd, comps = _scan_full_operands(group_name, points, idx)
+    if not comps[0].is_cuda:
+        return scan_accumulate_plain(group_name, points, idx)
+    batch, rows, lanes = idx.shape
+    outs = [torch.empty((NUM_WORDS, batch, rows, lanes), dtype=torch.int32,
+                        device=comps[0].device) for _ in range(3 * cd)]
+    if outs[0].numel() == 0 or _count(comps[0]) == 0:
+        return rebuild_coords(outs, cd)
+    sb, sr, sl = idx.stride()
+    rc = lib().oz_scan_full(cd, _addr_array(comps), _count(comps[0]),
+                            idx.data_ptr(), sb, sr, sl, batch, rows, lanes,
+                            _addr_array(outs), _stream())
+    _check(rc, "scan_accumulate")
+    LAUNCHES["scan_accumulate"] += 1
+    return rebuild_coords(outs, cd)

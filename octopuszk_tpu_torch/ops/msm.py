@@ -17,8 +17,24 @@
        plain sum over the bucket axis;
     4. window results combine MSB-first with c doublings per window.
 
+* **Variable-base Pippenger over an unpacked point batch**
+  (``pippenger_msm``): unsigned c-bit digits, one stable argsort per window
+  (all windows in one call), then the same two-level segmented prefix scan
+  with the full projective add (``scan_accumulate``, which reads the points
+  through the sorted order itself).  ``pippenger_msm_large`` packs an
+  unpacked batch and runs the packed pipeline.
+
+* **Host-streamed packed MSMs**: the packed MSMs run on the scalars'
+  device and stage a base kept in host memory there one chunk at a time;
+  ``pippenger_msm_packed_stream`` and ``pippenger_double_msm_packed_stream``
+  keep the reference's names for this and place the scalars on a device.
+
 * **Naive MSM** (``msm_naive``): batched double-and-add + tree reduce, used
   below ``NAIVE_THRESHOLD`` points.
+
+* **Host algorithms** (python ints): ``pippenger_host``,
+  ``sorted_msm_host``, ``bos_coster_msm_host`` and their partitioned
+  ``distributed_*_msm_host`` wrappers.
 
 Points are projective word-tensor batches (curves/bn254.py); scalars are
 raw (non-Montgomery) ``int32[8, n]`` words.  A packed base is one affine
@@ -34,7 +50,9 @@ import dataclasses
 import torch
 
 from octopuszk_tpu_torch.curves import group_ops as jac
+from octopuszk_tpu_torch.fields import fp
 from octopuszk_tpu_torch.ops import kernels
+from octopuszk_tpu_torch.utils import device as _device
 from octopuszk_tpu_torch.utils.bigint import NUM_WORDS, WORD_BITS
 
 SCALAR_BITS = 254
@@ -206,6 +224,18 @@ def _fixed_base_msm_packed(group, table: FixedBaseTable, digits):
     return _map_coords(tot, lambda c: c[:, 0])
 
 
+def double_batch_msm(g1_group, g2_group, base_g1, base_g2, scalars_raw,
+                     w: int | None = None):
+    """[s_i]G1 and [s_i]G2 for the same scalars: two fixed-base MSMs."""
+    return (fixed_base_msm(g1_group, base_g1, scalars_raw, w),
+            fixed_base_msm(g2_group, base_g2, scalars_raw, w))
+
+
+def field_batch_msm(spec, base_mont, scalars_mont):
+    """Elementwise scalars[i] * base over a prime field (both Montgomery)."""
+    return fp.mont_mul(spec, scalars_mont, base_mont[:, None])
+
+
 # ---------------------------------------------------------------------------
 # packed bases
 # ---------------------------------------------------------------------------
@@ -283,22 +313,15 @@ def _scan_sum(group, p, n: int, width: int = 2048):
     return group.tree_reduce(carry, width)
 
 
-def _window_msm_mixed(group, packed, d_sorted, idx2s, c: int, lanes: int,
-                      rows: int):
-    """All signed-digit Pippenger windows of one chunk over a packed base.
+def _bucket_sums(group, prefix, d_sorted, B: int, lanes: int, rows: int):
+    """Per-window cumulative bucket sums from the lane-parallel prefix scan.
 
-    ``d_sorted`` int64[num_win, m]: each window's sorted bucket magnitudes;
-    ``idx2s`` int32[num_win, m]: the matching (point index << 1) | negate.
-    The windows are independent and ride a leading batch dimension through
-    every step.  Returns a point batch [8, num_win]."""
-    num_win, m = d_sorted.shape
-    B = (1 << (c - 1)) + 1             # bucket ids 0..2^(c-1); 0 = skip
+    ``prefix`` [8, num_win, rows, lanes]: inclusive prefixes of the sorted
+    points (lane l owns sorted positions [l*rows, (l+1)*rows));
+    ``d_sorted`` int64[num_win, m]: the sorted bucket ids.  Returns
+    cum [8, num_win, B], cum[b] = sum of the points with id <= b."""
+    num_win = d_sorted.shape[0]
     dev = d_sorted.device
-
-    # lane l owns sorted positions [l*rows, (l+1)*rows)
-    idx_rows = idx2s.view(num_win, lanes, rows).transpose(1, 2)
-    prefix = kernels.scan_accumulate_mixed(
-        group.ops.group_name, packed, idx_rows)   # [8, num_win, rows, lanes]
     lane_totals = _map_coords(prefix, lambda a: a[:, :, rows - 1])
     excl = _shift_right_inf(group, _hs_prefix(group, lane_totals, lanes))
 
@@ -317,16 +340,43 @@ def _window_msm_mixed(group, packed, d_sorted, idx2s, c: int, lanes: int,
 
     cum = group.add(_map_coords(prefix, lambda a: take(a, within_at)),
                     _map_coords(excl, lambda a: take(a, lane_at)))
-    del prefix
-    cum = group.select(valid, cum, group.infinity((num_win, B), dev))
+    return group.select(valid, cum, group.infinity((num_win, B), dev))
 
-    # Abel: sum_b b*S_b = M*cum[M] - sum_{b<M} cum[b],  M = 2^(c-1)
-    shifted = _map_coords(cum, lambda a: a[..., B - 1])
+
+def _abel(group, cum, doublings: int, minus_last: bool):
+    """sum_b b*S_b over B = len(cum) buckets, S_b = cum[b] - cum[b-1]:
+    (B-1)*cum[B-1] - sum_{b<B-1} cum[b].  (B-1)*cum[B-1] is ``doublings``
+    doublings of cum[B-1], less cum[B-1] once when ``minus_last``."""
+    B = jac.leaf(cum).shape[-1]
+    last = _map_coords(cum, lambda a: a[..., B - 1])
     rest = _map_coords(cum, lambda a: a[..., :B - 1])
     sum_rest = _scan_sum(group, rest, B - 1)
-    for _ in range(c - 1):
+    shifted = last
+    for _ in range(doublings):
         shifted = group.double(shifted)
+    if minus_last:
+        shifted = group.add(shifted, group.negate(last))
     return group.add(shifted, group.negate(sum_rest))
+
+
+def _window_msm_mixed(group, packed, d_sorted, idx2s, c: int, lanes: int,
+                      rows: int):
+    """All signed-digit Pippenger windows of one chunk over a packed base.
+
+    ``d_sorted`` int64[num_win, m]: each window's sorted bucket magnitudes;
+    ``idx2s`` int32[num_win, m]: the matching (point index << 1) | negate.
+    The windows are independent and ride a leading batch dimension through
+    every step.  Returns a point batch [8, num_win]."""
+    num_win = d_sorted.shape[0]
+    # lane l owns sorted positions [l*rows, (l+1)*rows)
+    idx_rows = idx2s.view(num_win, lanes, rows).transpose(1, 2)
+    prefix = kernels.scan_accumulate_mixed(
+        group.ops.group_name, packed, idx_rows)   # [8, num_win, rows, lanes]
+    # bucket ids 0..2^(c-1); 0 = skip.  M = 2^(c-1) = 2^(c-1) doublings
+    cum = _bucket_sums(group, prefix, d_sorted, (1 << (c - 1)) + 1, lanes,
+                       rows)
+    del prefix
+    return _abel(group, cum, c - 1, minus_last=False)
 
 
 def _choose_c_large(chunk_m: int) -> int:
@@ -388,7 +438,10 @@ def _msm_large_packed(groups, packeds, scalars_raw, num_win: int, c: int,
     """MSMs of the same scalars against one packed base per group (one for
     a single MSM, G1 and G2 for the prover's double MSM): digit extraction
     and the per-window sort run once per chunk and drive every group's
-    bucket pipeline.  Returns one point per group."""
+    bucket pipeline.  Each chunk of a base is staged to the scalars' device
+    (a no-op for a base already there; from host memory, one copy per
+    chunk).  Returns one point per group."""
+    device = scalars_raw.device
     chunk_m = lanes * rows
     num_chunks = packeds[0].shape[0] // chunk_m
     acc = [None] * len(groups)
@@ -396,22 +449,37 @@ def _msm_large_packed(groups, packeds, scalars_raw, num_win: int, c: int,
         lo, hi = k * chunk_m, (k + 1) * chunk_m
         d_sorted, idx2s = _sorted_digits(scalars_raw[:, lo:hi], num_win, c)
         for i, (group, packed) in enumerate(zip(groups, packeds)):
-            w = _window_msm_mixed(group, packed[lo:hi], d_sorted, idx2s, c,
-                                  lanes, rows)
+            chunk = packed[lo:hi].to(device, non_blocking=True)
+            w = _window_msm_mixed(group, chunk, d_sorted, idx2s, c, lanes,
+                                  rows)
             acc[i] = w if acc[i] is None else group.add(acc[i], w)
     return [_combine_windows(g, a, c) for g, a in zip(groups, acc)]
 
 
+def _pad_scalars(scalars_raw, m: int):
+    """Append zero scalars up to m columns."""
+    if scalars_raw.shape[1] == m:
+        return scalars_raw
+    pad = torch.zeros((NUM_WORDS, m - scalars_raw.shape[1]),
+                      dtype=scalars_raw.dtype, device=scalars_raw.device)
+    return torch.cat([scalars_raw, pad], dim=1)
+
+
 def _pippenger_packed(groups, packeds, scalars_raw, c, lanes, chunk_log):
+    """The work runs on the scalars' device.  A base lies there or in host
+    memory (then it is staged chunk by chunk); a base on any other device
+    is refused rather than moved."""
     n = packeds[0].shape[0]
+    device = scalars_raw.device
     for packed in packeds:
         assert packed.shape[0] == n, [tuple(p.shape) for p in packeds]
-    if scalars_raw.shape[1] != n:
-        pad = torch.zeros((NUM_WORDS, n - scalars_raw.shape[1]),
-                          dtype=scalars_raw.dtype, device=scalars_raw.device)
-        scalars_raw = torch.cat([scalars_raw, pad], dim=1)
+        if packed.device != device and packed.device.type != "cpu":
+            raise ValueError(f"the base lies on {packed.device}, the scalars "
+                             f"on {device}: a base is staged only from "
+                             "host memory")
+    scalars_raw = _pad_scalars(scalars_raw, n)
     if c is None and lanes is None and n <= NAIVE_THRESHOLD:
-        return [msm_naive(g, packed_to_points(g, p), scalars_raw)
+        return [msm_naive(g, packed_to_points(g, p.to(device)), scalars_raw)
                 for g, p in zip(groups, packeds)]
     num_chunks, lanes, chunk_m, m_total = _plan_packed(n, lanes, chunk_log)
     assert m_total == n, (m_total, n)   # packed bases are pre-padded
@@ -427,7 +495,10 @@ def pippenger_msm_packed(group, packed, scalars_raw,
                          chunk_log: int = 22):
     """Variable-base MSM over a pre-packed base (``points_to_packed``): the
     at-rest layout of the CRS query vectors, packed once at setup and
-    reused across proofs.  Returns one point (no batch dim)."""
+    reused across proofs.  Runs on the scalars' device; a base in host
+    memory (pinned, for an asynchronous copy) is staged there one chunk of
+    2^chunk_log rows at a time, so that only one chunk of it is resident.
+    Returns one point (no batch dim)."""
     return _pippenger_packed([group], [packed], scalars_raw, c, lanes,
                              chunk_log)[0]
 
@@ -440,6 +511,111 @@ def pippenger_double_msm_packed(g1, g2, packed1, packed2, scalars_raw,
     same padded length): digits and sort are shared, nothing more."""
     return tuple(_pippenger_packed([g1, g2], [packed1, packed2], scalars_raw,
                                    c, lanes, chunk_log))
+
+
+# ---------------------------------------------------------------------------
+# host-streamed packed MSM (a CRS kept in host memory): the packed MSMs
+# with the scalars placed on ``device`` (None = the card)
+# ---------------------------------------------------------------------------
+
+def pippenger_msm_packed_stream(group, packed_host, scalars_raw,
+                                c: int | None = None,
+                                lanes: int | None = None,
+                                chunk_log: int = 22, device=None):
+    """``pippenger_msm_packed`` over a base held in host memory, staged to
+    ``device`` chunk by chunk.  The scalars may lie on either side."""
+    return pippenger_msm_packed(
+        group, packed_host, scalars_raw.to(_device.resolve(device)), c,
+        lanes, chunk_log)
+
+
+def pippenger_double_msm_packed_stream(g1, g2, p1_host, p2_host, scalars_raw,
+                                       c: int | None = None,
+                                       lanes: int | None = None,
+                                       chunk_log: int = 22, device=None):
+    """The streamed double MSM: digits and sort run once per chunk for
+    both host-resident bases."""
+    return pippenger_double_msm_packed(
+        g1, g2, p1_host, p2_host, scalars_raw.to(_device.resolve(device)),
+        c, lanes, chunk_log)
+
+
+# ---------------------------------------------------------------------------
+# variable-base Pippenger over an unpacked point batch (sort-based)
+# ---------------------------------------------------------------------------
+
+def _choose_c(n: int) -> int:
+    """Window width of the sort-based path: c = log2(n) - log2(n)/3,
+    clamped to [4, 16] (the bucket phase stays small beside the scan with
+    the Abel reduction, so fewer, wider windows pay off)."""
+    logn = max(1, n.bit_length() - 1)
+    return max(4, min(16, logn - logn // 3))
+
+
+def _choose_lanes(n: int) -> int:
+    """Lane count of the bucket-accumulation scan (a power of two)."""
+    return min(1 << max(0, n.bit_length() - 1), 4096)
+
+
+def _pad_pow2_to(group, points, m):
+    """Append identity points up to m; returns (points, m)."""
+    n = _batch_n(points)
+    if m == n:
+        return points, m
+    inf = group.infinity((m - n,), jac.leaf(points).device)
+    return tuple(jac._cat_coord(c, f) for c, f in zip(points, inf)), m
+
+
+def _window_msm(group, points, digits, c: int, lanes: int, rows: int):
+    """All unsigned-digit Pippenger windows of an unpacked batch.
+
+    ``digits`` int64[num_win, m]: bucket ids (0 = skip).  One stable sort
+    per window; the scan kernel reads the points through the sorted order.
+    The windows ride a leading batch dimension.  Returns a point batch
+    [8, num_win]."""
+    num_win = digits.shape[0]
+    d_sorted, order = torch.sort(digits, dim=1, stable=True)
+    # lane l owns sorted positions [l*rows, (l+1)*rows)
+    idx_rows = order.to(torch.int32).view(num_win, lanes, rows).transpose(1, 2)
+    del order
+    prefix = kernels.scan_accumulate(
+        group.ops.group_name, points, idx_rows)   # [8, num_win, rows, lanes]
+    cum = _bucket_sums(group, prefix, d_sorted, 1 << c, lanes, rows)
+    del prefix
+    # (2^c - 1) * cum[2^c - 1] = 2^c * cum[2^c - 1] - cum[2^c - 1]
+    return _abel(group, cum, c, minus_last=True)
+
+
+def pippenger_msm(group, points, scalars_raw, c: int | None = None,
+                  lanes: int | None = None):
+    """Sum_i [s_i] P_i over an unpacked projective batch -> one point (no
+    batch dim).  ``scalars_raw``: int32[8, <= n] raw words (missing scalars
+    are zero)."""
+    n = _batch_n(points)
+    if c is None:
+        c = _choose_c(n)
+    if lanes is None:
+        lanes = _choose_lanes(n)
+    # pad to a multiple of lanes with zero scalars (bucket 0 = discarded)
+    rows = -(-n // lanes)
+    m = rows * lanes
+    points, _ = _pad_pow2_to(group, points, m)
+    scalars_raw = _pad_scalars(scalars_raw, m)
+    num_win = (SCALAR_BITS + c - 1) // c
+    digits = _digits(scalars_raw, c, num_win)          # [num_win, m]
+    return _combine_windows(
+        group, _window_msm(group, points, digits, c, lanes, rows), c)
+
+
+def pippenger_msm_large(group, points, scalars_raw, c: int | None = None,
+                        lanes: int | None = None, chunk_log: int = 22):
+    """Large variable-base MSM of an unpacked batch: pack it into affine
+    rows, then the signed-digit packed pipeline."""
+    n = _batch_n(points)
+    packed = points_to_packed(group, points,
+                              pad_to=_msm_pad_to(group, n, lanes, chunk_log))
+    return pippenger_msm_packed(group, packed, scalars_raw, c, lanes,
+                                chunk_log)
 
 
 # ---------------------------------------------------------------------------
@@ -475,3 +651,83 @@ def pippenger_host(group, scalars, points, c: int = 8,
             tot = group.host.add(tot, run)
         acc = group.host.add(acc, tot)
     return acc
+
+
+def sorted_msm_host(group, scalars, points):
+    """Sort by scalar, multiply scalar differences into running suffix
+    sums.  Host python ints."""
+    out = None
+    running = None
+    prev_s = None
+    for s, p in sorted(zip(scalars, points), key=lambda t: -t[0]):
+        if prev_s is not None and prev_s != s:
+            out = group.host.add(out, group.host.mul(running, prev_s - s))
+        running = group.host.add(running, p)
+        prev_s = s
+    if prev_s is not None:
+        out = group.host.add(out, group.host.mul(running, prev_s))
+    return out
+
+
+def bos_coster_msm_host(group, scalars, points):
+    """Bos-Coster: repeatedly reduce the two largest scalars.  Host python
+    ints."""
+    import heapq
+
+    heap = [(-s, i) for i, s in enumerate(scalars) if s]
+    pts = list(points)
+    heapq.heapify(heap)
+    if not heap:
+        return None
+    while len(heap) > 1:
+        s1, i1 = heapq.heappop(heap)
+        s2, i2 = heap[0]
+        s1, s2 = -s1, -s2
+        if s2 == 0 or s1 // s2 > (1 << 20):
+            # degenerate: finish with double-and-add
+            heapq.heappush(heap, (-s1, i1))
+            acc = None
+            for s, i in heap:
+                acc = group.host.add(acc, group.host.mul(pts[i], -s))
+            return acc
+        s1 -= s2
+        pts[i2] = group.host.add(pts[i2], pts[i1])
+        if s1:
+            heapq.heappush(heap, (-s1, i1))
+    s, i = heap[0]
+    return group.host.mul(pts[i], -s)
+
+
+# ---------------------------------------------------------------------------
+# partitioned host variants: split (scalars, points) into partitions, run a
+# host algorithm per partition, reduce with host adds (for comparing
+# algorithm classes; the prover's path is the device Pippenger)
+# ---------------------------------------------------------------------------
+
+def _partitioned_host_msm(group, scalars, points, alg, num_partitions):
+    n = len(scalars)
+    num_partitions = max(1, min(num_partitions, n))
+    per = -(-n // num_partitions)
+    acc = None
+    for i in range(0, n, per):
+        part = alg(group, scalars[i:i + per], points[i:i + per])
+        acc = group.host.add(acc, part)
+    return acc
+
+
+def distributed_sorted_msm_host(group, scalars, points, num_partitions=8):
+    return _partitioned_host_msm(group, scalars, points, sorted_msm_host,
+                                 num_partitions)
+
+
+def distributed_bos_coster_msm_host(group, scalars, points,
+                                    num_partitions=8):
+    return _partitioned_host_msm(group, scalars, points,
+                                 bos_coster_msm_host, num_partitions)
+
+
+def distributed_pippenger_msm_host(group, scalars, points,
+                                   num_partitions=8):
+    return _partitioned_host_msm(
+        group, scalars, points,
+        lambda g, s, p: pippenger_host(g, s, p), num_partitions)

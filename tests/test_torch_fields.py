@@ -18,6 +18,11 @@ from octopuszk_tpu_torch.fields import fp, fp2
 from octopuszk_tpu_torch.fields import spec as tspec
 from octopuszk_tpu_torch.utils.bigint import ints_to_words, words_to_ints
 
+# The port's CPU path is many small tensor ops.  Several test processes
+# share the cores, and torch's intra-op thread pools would oversubscribe
+# them (each op many times slower), so each process keeps one thread.
+torch.set_num_threads(1)
+
 N = 64
 SPECS = {"fr": (rspec.FR, tspec.FR), "fq": (rspec.FQ, tspec.FQ)}
 

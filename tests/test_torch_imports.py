@@ -49,9 +49,24 @@ def test_source_names_no_jax(path):
                          text, re.M)
 
 
-def test_entry_points_default_to_the_card():
+def test_every_module_and_source_is_covered():
+    """The lists above are globbed; these are the modules and kernel
+    sources the checks must not lose."""
+    for mod in ("octopuszk_tpu_torch.models.groth16.serialize",
+                "octopuszk_tpu_torch.models.groth16.prover",
+                "octopuszk_tpu_torch.ops.msm", "octopuszk_tpu_torch.convert"):
+        assert mod in MODULES
+    names = {p.name for p in SOURCES}
+    assert {"scan_full_kernels.cu", "scan_kernels.cu",
+            "chip_smoke.py"} <= names
+
+
+def test_entry_points_default_to_the_card(tmp_path):
     """Asked for the card (device=None) with none present, the entry
     points raise instead of running on the CPU."""
+    from octopuszk_tpu_torch.models.groth16 import serialize
     from octopuszk_tpu_torch.relations import construct
     with pytest.raises(RuntimeError, match="CUDA"):
         construct.serial_construct(6, 3)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serialize.load_crs(str(tmp_path / "absent.npz"))

@@ -1,6 +1,7 @@
 """The plain PyTorch version of every CUDA kernel (ops/kernels.py
 ``*_plain``, which is also what each wrapper runs for a CPU tensor) against
-the JAX function that the Pallas kernel traces.
+the JAX function that the Pallas kernel traces (kernel h: the reference's
+full add, looped over the rows as its Pallas scan does).
 
 The field kernels and the G1 point kernels run the reference's Pallas
 kernels in interpret mode at one block, as tests/test_ntt.py and
@@ -25,6 +26,11 @@ from octopuszk_tpu_torch.curves import bn254, group_ops as jac
 from octopuszk_tpu_torch.fields import spec as tspec
 from octopuszk_tpu_torch.ops import kernels, msm
 from octopuszk_tpu_torch.utils.bigint import ints_to_words
+
+# The port's CPU path is many small tensor ops.  Several test processes
+# share the cores, and torch's intra-op thread pools would oversubscribe
+# them (each op many times slower), so each process keeps one thread.
+torch.set_num_threads(1)
 
 N = 40
 SPECS = {"fr": (rspec.FR, tspec.FR), "fq": (rspec.FQ, tspec.FQ)}
@@ -202,6 +208,45 @@ def test_scans(gname):
     assert tg.points_to_host(lane0) == [tg.host.mul(pts[7], 4)]
 
 
+@pytest.mark.parametrize("gname", sorted(GROUPS))
+def test_scan_accumulate(gname):
+    """(h) against a Python loop of the reference's full add over the same
+    gathered rows, at rows = 4, lanes = 8, batch = 2, with identity rows, a
+    repeated point (the complete add doubles) and an inverse pair."""
+    rg, tg = GROUPS[gname]
+    rows, lanes, batch = 4, 8, 2
+    pts = _points(tg, 7, 24)                    # pts[0] is the identity
+    pts[9] = tg.host.neg(pts[8])
+    rpts, tpts = _pair(rg, tg, pts)
+    rng = np.random.default_rng(8)
+    order = rng.integers(0, 24, size=(batch, rows, lanes))
+    order[0, :, 0] = [7, 7, 7, 7]           # P, 2P, 3P, 4P
+    order[0, :, 1] = [8, 9, 0, 8]           # P, P - P, identity, P
+    order[1, :, 2] = [0, 0, 0, 0]           # identity rows only
+    # a strided view, as ops/msm.py hands over
+    idx = torch.from_numpy(order.astype(np.int32)).transpose(1, 2) \
+        .contiguous().transpose(1, 2)
+
+    prefix = kernels.scan_accumulate_plain(gname, tpts, idx)
+    assert all(torch.equal(a, b) for a, b in zip(
+        jac.flatten_coords(kernels.scan_accumulate(gname, tpts, idx)),
+        jac.flatten_coords(prefix)))
+    assert kernels.LAUNCHES["scan_accumulate"] == 0
+
+    for b in range(batch):
+        carry = rjac.infinity(rg.ops, (lanes,))
+        for r in range(rows):
+            at = jnp.asarray(order[b, r].astype(np.int32))
+            carry = rjac.add(rg.ops, carry,
+                             rjac._map_coords(rpts, lambda c: c[..., at]))
+            _same_point(carry, jac._map_coords(prefix, lambda c: c[:, b, r]))
+    host = tg.points_to_host(jac._map_coords(
+        prefix, lambda c: c[:, 0, :, :2].reshape(8, -1)))
+    p7, p8 = pts[7], pts[8]
+    assert host[0::2] == [tg.host.mul(p7, k) for k in (1, 2, 3, 4)]
+    assert host[1::2] == [p8, None, None, p8]
+
+
 def test_wrappers_reject_wrong_operands():
     a = torch.zeros((8, 4), dtype=torch.int32)
     with pytest.raises(TypeError):
@@ -218,6 +263,12 @@ def test_wrappers_reject_wrong_operands():
         kernels.scan_accumulate_mixed(
             "G1", torch.zeros((4, 16), dtype=torch.int32),
             torch.zeros((1, 1), dtype=torch.int32))
+    with pytest.raises(TypeError):
+        kernels.scan_accumulate("G1", (a, a, a),
+                                torch.zeros((1, 1), dtype=torch.int32))
+    with pytest.raises(TypeError):
+        kernels.scan_accumulate("G1", (a[:, None], a[:, None], a[:, None]),
+                                torch.zeros((1, 1, 1), dtype=torch.int32))
 
 
 def test_constants_header_matches_spec():

@@ -23,6 +23,11 @@ from octopuszk_tpu_torch.fields.spec import FR
 from octopuszk_tpu_torch.ops import msm
 from octopuszk_tpu_torch.utils.bigint import ints_to_words
 
+# The port's CPU path is many small tensor ops.  Several test processes
+# share the cores, and torch's intra-op thread pools would oversubscribe
+# them (each op many times slower), so each process keeps one thread.
+torch.set_num_threads(1)
+
 N, C, LANES = 50, 8, 32          # 50 points pad to 64 packed rows
 R = FR.p
 

@@ -14,6 +14,11 @@ from octopuszk_tpu_torch.fields.spec import FR
 from octopuszk_tpu_torch.reductions import r1cs_to_qap as qap
 from octopuszk_tpu_torch.relations import construct, r1cs
 
+# The port's CPU path is many small tensor ops.  Several test processes
+# share the cores, and torch's intra-op thread pools would oversubscribe
+# them (each op many times slower), so each process keeps one thread.
+torch.set_num_threads(1)
+
 
 @pytest.fixture(scope="module")
 def circuit():
