@@ -17,12 +17,22 @@ points, in three ways that must give the same proof:
   temporary directory, read back with ``load_crs(stream=True)`` (queries in
   pinned host memory) and proved by staging them to the card.
 
-Each path runs with the launch counts set to 0 and must launch the kernels
-it is built on.  Two variable-base MSMs (packed and unpacked) are checked
-against python-int curve arithmetic.
+Then it runs the port's gather experiment (``gather``: kernel i against
+``torch.index_select`` over 2^21 rows of 128 words), checks that an index
+out of range makes kernel i fail (in child processes), and runs every
+serial app of the port's profiler through ``profiler.main`` (``profiler
+<app> <log2>``, the reference's apps and printed lines, plus ``zksnark``
+with 1023 inputs); a verifying app must verify, and the ``bace`` proof is
+verified again beside a tampered one that must be rejected.
+
+Each path and app runs with the launch counts set to 0 and must launch the
+kernels it is built on.  Two variable-base MSMs (packed and unpacked) are
+checked against python-int curve arithmetic.
 
 Output: one JSON object per line (``env``, one ``path`` per path,
-``oracle``, ``kernels``), then the card's name and power limit as
+``oracle``, ``gather_out_of_range``, one ``profiler`` per app, ``kernels``;
+the gather experiment's and the apps' own lines between them), then the
+card's name and power limit as
 ``nvidia-smi`` prints them, then the result line.  Exits non-zero if there
 is no CUDA device, if the build fails, if any comparison differs or any
 phase raises.
@@ -35,6 +45,7 @@ card: below that the 4-step NTT is not run).  ``--profile`` adds a
 from __future__ import annotations
 
 import argparse
+import csv
 import dataclasses
 import json
 import os
@@ -70,6 +81,7 @@ REPLACES = {
     "scan_accumulate_mixed": "octopuszk_tpu/ops/pallas_ops.py:355",
     "scan_accumulate_mixed_total": "octopuszk_tpu/ops/pallas_ops.py:434",
     "scan_accumulate": "octopuszk_tpu/ops/pallas_ops.py:272",
+    "row_gather": "scripts/gather_experiment.py:30",
 }
 SOURCE = {
     "butterfly": "octopuszk_tpu_torch/csrc/field_kernels.cu",
@@ -80,15 +92,43 @@ SOURCE = {
     "scan_accumulate_mixed": "octopuszk_tpu_torch/csrc/scan_kernels.cu",
     "scan_accumulate_mixed_total": "octopuszk_tpu_torch/csrc/scan_kernels.cu",
     "scan_accumulate": "octopuszk_tpu_torch/csrc/scan_full_kernels.cu",
+    "row_gather": "octopuszk_tpu_torch/csrc/gather_kernels.cu",
 }
 # the kernels each path is built on: each must launch at least once there
 _PROVE_KERNELS = {"butterfly", "mont_mul", "mul_sub", "add_points",
                   "double_points"}
+_GROTH16_KERNELS = set(REPLACES) - {"scan_accumulate", "row_gather"}
+_FIXED_KERNELS = {"add_points", "double_points", "mont_mul",
+                  "scan_accumulate_mixed_total"}
 REQUIRED = {
-    "packed": set(REPLACES) - {"scan_accumulate"},
+    "packed": _GROTH16_KERNELS,
     "unpacked": _PROVE_KERNELS | {"scan_accumulate"},
     "streamed": _PROVE_KERNELS | {"scan_accumulate_mixed"},
+    "gather": {"row_gather"},
 }
+# The profiler's serial apps, as ``profiler.main`` runs them, each with the
+# kernels its path reaches; all at the main path's size but those in
+# PROFILER_CUTS.
+PROFILER_APPS = [
+    (["fft"], {"butterfly", "mont_mul"}),
+    (["lagrange"], {"mont_mul"}),
+    (["fmsm-g1"], _FIXED_KERNELS),
+    (["fmsm-g2"], _FIXED_KERNELS),
+    (["vmsm-g1"], _FIXED_KERNELS | {"scan_accumulate_mixed"}),
+    (["vmsm-g2"], _FIXED_KERNELS | {"scan_accumulate_mixed"}),
+    (["relation"], {"mont_mul"}),
+    (["witness"], {"butterfly", "mont_mul", "mul_sub"}),
+    (["zksnark"], _GROTH16_KERNELS),
+    (["zksnark", "--inputs=1023"], _GROTH16_KERNELS),
+    (["bace"], {"butterfly", "mont_mul"}),
+    (["matmul"], _GROTH16_KERNELS),
+    (["regression"], _GROTH16_KERNELS),
+    (["gaussian"], _GROTH16_KERNELS),
+]
+# log2 steps below the main path's size: regression's verifier is a
+# python-int MSM over every public input, about 0.95 x its constraints
+# (249,053 at 2^18, 1,000,924 at 2^20)
+PROFILER_CUTS = {"regression": 2}
 # field products per curve operation (products + those inside mul_b3)
 MONT_MULS = {("add", 1): 12, ("add", 2): 12 * 3 + 2 * 3,
              ("double", 1): 8, ("double", 2): 8 * 3 + 3,
@@ -106,10 +146,15 @@ def smi(query: str) -> str:
 
 
 def time_ms(fn, dev, reps: int):
-    """Mean time of one call: CUDA events around ``reps`` calls after one
-    warm-up call, synchronised.  Returns (ms, the last timed call's
-    output)."""
-    fn()
+    """Mean time of one call: CUDA events around ``reps`` calls after two
+    warm-up calls, synchronised.  Each call allocates its output while the
+    previous one is still held, so the caching allocator settles on two
+    alternating blocks only after the second call; before that the timed
+    calls would include a device allocation.  Returns (ms, the last timed
+    call's output)."""
+    out = fn()
+    out = fn()
+    del out
     torch.cuda.synchronize(dev)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -180,10 +225,16 @@ def check_kernels(dev, log2: int, int32_rate: float, reps: int):
     gen = torch.Generator(device=dev).manual_seed(20)
     records = []
 
-    def record(name, variant, shape, kernel_fn, plain_fn, bytes_moved, mads):
+    def record(name, variant, shape, kernel_fn, plain_fn, bytes_moved, mads,
+               library_fn=None):
         """kernel_fn, at ``shape``, is timed, and the output of its last
-        timed launch is compared with plain_fn on the same inputs."""
+        timed launch is compared with plain_fn on the same inputs;
+        library_fn, where given, is one PyTorch call that computes the same
+        function, timed likewise."""
         ms, got = time_ms(kernel_fn, dev, reps)
+        library_ms = None
+        if library_fn is not None:
+            library_ms, _ = time_ms(library_fn, dev, reps)
         for _ in range(2):          # a second pass where the first was short
             torch.cuda.synchronize(dev)
             t0 = time.perf_counter()
@@ -202,7 +253,7 @@ def check_kernels(dev, log2: int, int32_rate: float, reps: int):
             "source": SOURCE[name], "replaces": REPLACES[name],
             "shape": shape, "equal": ok, "max_abs_err": diff, "ms": ms,
             "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
             "tolerance": "exact"})
         if not ok:
             raise SystemExit(f"kernel {name} ({variant}) differs from its "
@@ -320,7 +371,58 @@ def check_kernels(dev, log2: int, int32_rate: float, reps: int):
                MONT_MULS["add", cd] * MADS_PER_MONT_MUL * order.numel())
         del pts, order, view
         torch.cuda.empty_cache()
+
+    # (i) row_gather: a permutation of 2^(log2+1) rows (the packed query
+    # length), at the reference experiment's width and at the packed G1
+    # and G2 point rows; the library call is torch.index_select
+    rows_g = 2 * n
+    for width in (128, 16, 32):
+        table = torch.randint(-2**31, 2**31, (rows_g, width), dtype=torch.int64,
+                              device=dev, generator=gen).to(torch.int32)
+        idx = torch.randperm(rows_g, device=dev, generator=gen).to(torch.int32)
+        idx_long = idx.long()
+        record("row_gather", f"W = {width}", [rows_g, width],
+               lambda: kernels.row_gather(table, idx),
+               lambda: kernels.row_gather_plain(table, idx),
+               2 * rows_g * width * 4 + rows_g * 4, 0,
+               library_fn=lambda: torch.index_select(table, 0, idx_long))
+        del table, idx, idx_long
+    torch.cuda.empty_cache()
     return records
+
+
+_BAD_GATHER = """
+import os, torch
+from octopuszk_tpu_torch.ops import kernels
+table = torch.zeros((64, 16), dtype=torch.int32, device="cuda")
+idx = torch.tensor([0, {bad}], dtype=torch.int32, device="cuda")
+try:
+    kernels.row_gather(table, idx)
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    print(str(e).strip().splitlines()[0], flush=True)
+    os._exit(0)
+os._exit(3)
+"""
+
+
+def check_gather_bounds():
+    """An index outside [0, R) must abort row_gather and raise at the next
+    synchronisation.  That leaves the process's CUDA context unusable, so
+    each case runs in a process of its own (the build is reused)."""
+    procs = [(bad, subprocess.Popen(
+        [sys.executable, "-c", _BAD_GATHER.format(bad=bad)],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for bad in (64, -1)]
+    out = {}
+    for bad, proc in procs:
+        text, _ = proc.communicate(timeout=300)
+        out[str(bad)] = {"raised": proc.returncode == 0,
+                         "message": text.strip().splitlines()[-1:]}
+    emit({"gather_out_of_range": out})
+    if not all(v["raised"] for v in out.values()):
+        raise SystemExit("row_gather did not fail on an index out of range")
 
 
 def _total_plain_sliced(g, table, idx2, lanes_per_slice=1 << 17):
@@ -344,17 +446,19 @@ def _first(point):
 # phase: the main path
 # ---------------------------------------------------------------------------
 
-def drive(dev, name: str, fn):
+def drive(dev, name: str, fn, required=None):
     """Run one path with the launch counts and the peak-memory mark set
     to 0 just before it; returns (its result, its launch counts).  Fails if
-    a kernel the path is built on was never launched."""
+    a kernel the path is built on (``required``, by default REQUIRED[name])
+    was never launched."""
     torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     kernels.reset_launch_counts()
     out = fn()
     torch.cuda.synchronize(dev)
     launches = dict(kernels.LAUNCHES)
-    idle = sorted(k for k in REQUIRED[name] if launches[k] == 0)
+    required = REQUIRED[name] if required is None else required
+    idle = sorted(k for k in required if launches[k] == 0)
     if idle:
         raise SystemExit(f"kernels never launched on the {name} path: {idle}")
     return out, launches
@@ -466,6 +570,68 @@ def run_paths(dev, log2: int):
     check_proof("streamed", loaded, primary, sproof, proof, stages,
                 {**sizes, **extra}, counts["streamed"], dev)
     return counts, (crs, primary, aux)
+
+
+def run_gather(dev, log2: int):
+    """The port's gather experiment over 2^(log2+1) rows, as its command
+    line runs it (it prints its two lines).  Returns its launch counts."""
+    from octopuszk_tpu_torch.scripts import gather_experiment
+    t0 = time.perf_counter()
+    _, launches = drive(dev, "gather", lambda: gather_experiment.main(log2 + 1))
+    emit({"path": {"name": "gather", "log2_rows": log2 + 1,
+                   "seconds": time.perf_counter() - t0,
+                   "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
+                   "launches": launches}})
+    return launches
+
+
+def run_profiler(dev, log2: int):
+    """Every serial app of the port's profiler through ``profiler.main``
+    (each prints the reference's lines; a verifying app asserts ok), with
+    the launch counts reset per app.  After ``bace`` the same proof is
+    recomputed, verified, and a tampered one must be rejected.  Returns the
+    launch counts per app."""
+    from octopuszk_tpu_torch.models.bace import prover as bprover, verifier as bverifier
+    from octopuszk_tpu_torch.profiler import profiler
+    counts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for k, (args, required) in enumerate(PROFILER_APPS):
+            app = args[0]
+            size = log2 - PROFILER_CUTS.get(app, 0)
+            argv = [app, str(size)] + args[1:]
+            name = "profiler " + " ".join(argv)
+            events = os.path.join(tmp, str(k))
+            t0 = time.perf_counter()
+            rc, counts[name] = drive(
+                dev, name, lambda: profiler.main(argv, events_dir=events),
+                required)
+            seconds = time.perf_counter() - t0
+            if rc != 0:
+                raise SystemExit(f"{name} returned {rc}")
+            with open(os.path.join(events, f"{app}.csv")) as f:
+                records = {r["name"]: float(r["seconds"])
+                           for r in csv.DictReader(f)}
+            line = {"app": app, "argv": argv, "log2": size,
+                    "seconds": seconds, "records": records,
+                    "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
+                    "launches": counts[name]}
+            if app == "bace":
+                n = 1 << size
+                c = profiler.bace_circuit()
+                inputs = profiler._rand_scalars(2 * n, device=dev)
+                proof = bprover.compute_proof(FR, c, inputs, n)
+                bad = proof.clone()
+                bad[0, 0] += 1
+                line["verify"] = bverifier.verify_proof(FR, c, proof, inputs, n)
+                line["tampered_proof_rejected"] = not bverifier.verify_proof(
+                    FR, c, bad, inputs, n)
+                if not (line["verify"] and line["tampered_proof_rejected"]):
+                    emit({"profiler": line})
+                    raise SystemExit("the bace proof did not verify, or a "
+                                     "tampered one was accepted")
+            emit({"profiler": line})
+            torch.cuda.empty_cache()
+    return counts
 
 
 def profile_prove(dev, crs, primary, aux):
@@ -593,6 +759,9 @@ def main() -> int:
         profile_prove(dev, *proving_inputs)
     del proving_inputs
     run_oracle(dev, 1 << 12)
+    counts["gather"] = run_gather(dev, args.log2)
+    check_gather_bounds()
+    counts.update(run_profiler(dev, args.log2))
     for r in records:
         r["launches_per_path"] = {p: c[r["name"]] for p, c in counts.items()}
         r["launches"] = sum(r["launches_per_path"].values())

@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels: build, load, wrappers, plain versions.
 
-Eight kernels (sources under ``csrc/``) replace the Pallas kernels of the
-same names in ``octopuszk_tpu/ops/pallas_ops.py``:
+Nine kernels (sources under ``csrc/``) replace the Pallas kernels of the
+same names in ``octopuszk_tpu/ops/pallas_ops.py`` and, for ``row_gather``,
+``_pallas_gather`` in ``scripts/gather_experiment.py``:
 
 =================================  ====================
 wrapper                            source
@@ -14,9 +15,11 @@ wrapper                            source
 ``scan_accumulate_mixed``          scan_kernels.cu
 ``scan_accumulate_mixed_total``    scan_kernels.cu
 ``scan_accumulate``                scan_full_kernels.cu
+``row_gather``                     gather_kernels.cu
 =================================  ====================
 
-Each wrapper takes word tensors (``int32[8, ...]``, see fields/fp.py).  For
+Each wrapper takes word tensors (``int32[8, ...]``, see fields/fp.py; the
+row gather takes rows ``int32[R, W]``).  For
 a tensor on the CPU it evaluates the plain PyTorch version beside it
 (``*_plain``); for a tensor on the card it launches its kernel on the
 current stream, without synchronising, or raises.  There is no fallback and
@@ -47,14 +50,15 @@ from octopuszk_tpu_torch.utils.bigint import NUM_WORDS
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parent.parent.parent / "build"
 SOURCES = ("field_kernels.cu", "ec_kernels.cu", "scan_kernels.cu",
-           "scan_full_kernels.cu")
+           "scan_full_kernels.cu", "gather_kernels.cu")
 HEADERS = ("field.cuh", "fp2.cuh", "rcb.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 KERNEL_NAMES = ("butterfly", "mont_mul", "mul_sub", "add_points",
                 "double_points", "scan_accumulate_mixed",
-                "scan_accumulate_mixed_total", "scan_accumulate")
+                "scan_accumulate_mixed_total", "scan_accumulate",
+                "row_gather")
 LAUNCHES = dict.fromkeys(KERNEL_NAMES, 0)
 
 _FIELD_IDS = {FR.name: 0, FQ.name: 1}
@@ -169,9 +173,11 @@ def lib():
                                        addrs, vp]
         cdll.oz_scan_full.argtypes = [ci, addrs, ll, vp, ll, ll, ll, ci, ci,
                                       ci, addrs, vp]
+        cdll.oz_row_gather.argtypes = [vp, ll, vp, ll, ci, vp, vp]
         for fn in (cdll.oz_butterfly, cdll.oz_mont_mul, cdll.oz_mul_sub,
                    cdll.oz_add_points, cdll.oz_double_points,
-                   cdll.oz_scan_mixed, cdll.oz_scan_full):
+                   cdll.oz_scan_mixed, cdll.oz_scan_full,
+                   cdll.oz_row_gather):
             fn.restype = ci
         _lib = cdll
     return _lib
@@ -533,3 +539,50 @@ def scan_accumulate(group_name: str, points, idx):
     _check(rc, "scan_accumulate")
     LAUNCHES["scan_accumulate"] += 1
     return rebuild_coords(outs, cd)
+
+
+# ---------------------------------------------------------------------------
+# (i) row_gather
+# ---------------------------------------------------------------------------
+
+def _gather_operands(table, idx):
+    if (table.dtype != torch.int32 or table.dim() != 2
+            or table.shape[1] == 0 or table.shape[1] % 4 != 0
+            or not table.is_contiguous()):
+        raise TypeError("table must be contiguous int32[R, W] with W a "
+                        f"positive multiple of 4, got {table.dtype}"
+                        f"{tuple(table.shape)}")
+    if idx.dtype != torch.int32 or idx.dim() != 1 or not idx.is_contiguous():
+        raise TypeError(f"idx must be contiguous int32[m], got {idx.dtype}"
+                        f"{tuple(idx.shape)}")
+    if idx.device != table.device:
+        raise ValueError("operands lie on different devices")
+
+
+def row_gather_plain(table, idx):
+    """out[j] = table[idx[j]]; raises IndexError on an index outside
+    [0, R)."""
+    return torch.index_select(table, 0, idx.long())
+
+
+def row_gather(table, idx):
+    """Gather rows: ``table`` int32[R, W] (W a multiple of 4, 16-byte
+    aligned), ``idx`` int32[m] -> int32[m, W].  On the card an index
+    outside [0, R) aborts the kernel, and the next synchronisation raises."""
+    _gather_operands(table, idx)
+    if not table.is_cuda:
+        return row_gather_plain(table, idx)
+    if table.data_ptr() % 16 != 0:
+        raise ValueError("table must be 16-byte aligned")
+    out = torch.empty((idx.shape[0], table.shape[1]), dtype=torch.int32,
+                      device=table.device)
+    if out.numel() == 0:
+        return out
+    if table.shape[0] == 0:
+        raise IndexError("gather from an empty table")
+    rc = lib().oz_row_gather(table.data_ptr(), table.shape[0], idx.data_ptr(),
+                             idx.shape[0], table.shape[1], out.data_ptr(),
+                             _stream())
+    _check(rc, "row_gather")
+    LAUNCHES["row_gather"] += 1
+    return out

@@ -54,10 +54,19 @@ def test_every_module_and_source_is_covered():
     sources the checks must not lose."""
     for mod in ("octopuszk_tpu_torch.models.groth16.serialize",
                 "octopuszk_tpu_torch.models.groth16.prover",
-                "octopuszk_tpu_torch.ops.msm", "octopuszk_tpu_torch.convert"):
+                "octopuszk_tpu_torch.ops.msm", "octopuszk_tpu_torch.convert",
+                "octopuszk_tpu_torch.utils.config",
+                "octopuszk_tpu_torch.ops.poly",
+                "octopuszk_tpu_torch.models.bace.circuit",
+                "octopuszk_tpu_torch.models.bace.prover",
+                "octopuszk_tpu_torch.models.bace.verifier",
+                "octopuszk_tpu_torch.relations.apps",
+                "octopuszk_tpu_torch.scripts.gather_experiment",
+                "octopuszk_tpu_torch.profiler.profiler",
+                "octopuszk_tpu_torch.profiler.__main__"):
         assert mod in MODULES
     names = {p.name for p in SOURCES}
-    assert {"scan_full_kernels.cu", "scan_kernels.cu",
+    assert {"scan_full_kernels.cu", "scan_kernels.cu", "gather_kernels.cu",
             "chip_smoke.py"} <= names
 
 
@@ -65,8 +74,20 @@ def test_entry_points_default_to_the_card(tmp_path):
     """Asked for the card (device=None) with none present, the entry
     points raise instead of running on the CPU."""
     from octopuszk_tpu_torch.models.groth16 import serialize
-    from octopuszk_tpu_torch.relations import construct
+    from octopuszk_tpu_torch.profiler import profiler
+    from octopuszk_tpu_torch.relations import apps, construct
+    from octopuszk_tpu_torch.scripts import gather_experiment
     with pytest.raises(RuntimeError, match="CUDA"):
         construct.serial_construct(6, 3)
     with pytest.raises(RuntimeError, match="CUDA"):
         serialize.load_crs(str(tmp_path / "absent.npz"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        apps.matmul_construct(1, 1, 1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        profiler.main(["fft", "4"], events_dir=str(tmp_path))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        profiler._rand_scalars(4)
+    # the gather experiment is row_gather's one caller
+    with pytest.raises(RuntimeError, match="CUDA"):
+        gather_experiment.main(4)
+    assert not list(tmp_path.iterdir())
