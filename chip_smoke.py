@@ -30,16 +30,26 @@ kernels it is built on.  Two variable-base MSMs (packed and unpacked) are
 checked against python-int curve arithmetic.
 
 Output: one JSON object per line (``env``, one ``path`` per path,
-``oracle``, ``gather_out_of_range``, one ``profiler`` per app, ``kernels``;
+``profile``, ``oracle``, ``gather_out_of_range``, one ``profiler`` per app,
+``launches``, ``kernels``;
 the gather experiment's and the apps' own lines between them), then the
 card's name and power limit as
 ``nvidia-smi`` prints them, then the result line.  Exits non-zero if there
 is no CUDA device, if the build fails, if any comparison differs or any
 phase raises.
 
+After the three paths one more packed prove runs under ``torch.profiler``
+(``profile`` line: the warm prove's wall time, device busy time and idle
+share).  The ``kernels`` line holds, for each kernel and variant, its time
+beside its bound, its plain version's and, where one exists, a library
+call's, and its launches per path; a ``launches`` line holds the counts per path
+and kernel; the ``env`` line holds ptxas's registers and spills for every
+kernel.  ``double_points`` has one record per doubling chain of the main
+path (the Abel sum's, the window combine's, the window table's), timed per
+chain: one launch each.
+
 ``--log2 N`` cuts the constraint count to 2^N (never below 2^18 on the
-card: below that the 4-step NTT is not run).  ``--profile`` adds a
-``profile`` line: one more packed prove under ``torch.profiler``.
+card: below that the 4-step NTT is not run).
 """
 
 from __future__ import annotations
@@ -270,8 +280,13 @@ def check_kernels(dev, log2: int, int32_rate: float, reps: int):
                    lambda: kernels.butterfly(spec, a, b, w, dif),
                    lambda: kernels.butterfly_plain(spec, a, b, w, dif),
                    5 * ELEM_BYTES * half, MADS_PER_MONT_MUL * half)
-    # (b) mont_mul: Fr at the NTT size, Fq at the packed-query size
-    for spec, tag, cnt in ((FR, "Fr", n), (FQ, "Fq", 2 * n)):
+    # (b) mont_mul: Fr at the NTT size, Fq at the packed-query size; then
+    # the shapes of most of its launches: a row of batch_inv_rows (4,096
+    # lanes) and the Fermat chains of inversions (1 to 15 elements)
+    for spec, tag, cnt in ((FR, "Fr", n), (FQ, "Fq", 2 * n),
+                           (FQ, "Fq, a batch_inv_rows row", 4096),
+                           (FQ, "Fq, a Fermat chain step", 15),
+                           (FQ, "Fq, a Fermat chain step", 1)):
         a, b = rand_field(gen, (cnt,), dev), rand_field(gen, (cnt,), dev)
         record("mont_mul", tag, [8, cnt],
                lambda: kernels.mont_mul(spec, a, b),
@@ -292,31 +307,58 @@ def check_kernels(dev, log2: int, int32_rate: float, reps: int):
     cwin = msm._choose_c_large(chunk_m)
     num_win = -(-255 // cwin)
     nb = (1 << (cwin - 1)) + 1
+    w_fixed = msm._choose_w_packed(2 * n) if 2 * n >= msm.FIXED_PACKED_MIN \
+        else msm._choose_w(2 * n)
+    outerc = -(-msm.SCALAR_BITS // w_fixed)
     for cd, g in ((1, "G1"), (2, "G2")):
-        # (d) add_points at the bucket phase's shape [num_win, 2^(c-1)+1]
+        # (d) add_points at the bucket phase's shape [num_win, 2^(c-1)+1],
+        # then at the scans over bucket rows (msm._scan_sum's 2,048 lanes,
+        # msm._hs_prefix over 4,096 lanes) that hold most of its launches
+        for variant, shape in ((g, (num_win, nb)),
+                               (g + ", a _scan_sum row", (num_win, 2048)),
+                               (g + ", a lane-prefix step", (num_win, lanes))):
+            p = rand_point(gen, cd, shape, dev)
+            q = rand_point(gen, cd, shape, dev)
+            cnt = shape[0] * shape[1]
+            record("add_points", variant, [8, *shape],
+                   lambda: kernels.add_points(g, p, q),
+                   lambda: kernels.add_points_plain(g, p, q),
+                   9 * cd * ELEM_BYTES * cnt,
+                   MONT_MULS["add", cd] * MADS_PER_MONT_MUL * cnt)
         p = rand_point(gen, cd, (num_win, nb), dev)
-        q = rand_point(gen, cd, (num_win, nb), dev)
         cnt = num_win * nb
-        record("add_points", g, [8, num_win, nb],
-               lambda: kernels.add_points(g, p, q),
-               lambda: kernels.add_points_plain(g, p, q),
-               9 * cd * ELEM_BYTES * cnt,
-               MONT_MULS["add", cd] * MADS_PER_MONT_MUL * cnt)
-        # (e) double_points: the main path doubles one point per window
-        # (Abel chain) or a single point (window combine, table build)
+        # (e) double_points: one double of one point per window, the
+        # doubling chains of the main path in one launch each (the Abel
+        # sum's c - 1 on one point per window, the window combine's c on
+        # one point, the fixed-base window table's outerc * w on one point,
+        # every step kept), and one double over 2^16 points
         p1 = _first(p)
         record("double_points", g, [8, num_win],
                lambda: kernels.double_points(g, p1),
                lambda: kernels.double_points_plain(g, p1),
                6 * cd * ELEM_BYTES * num_win,
                MONT_MULS["double", cd] * MADS_PER_MONT_MUL * num_win)
+        one = _first(p1)
+        for variant, pt, times, every in (
+                ("Abel chain", p1, cwin - 1, False),
+                ("window combine chain", one, cwin, False),
+                ("window table chain, every step", one, outerc * w_fixed,
+                 True)):
+            npts = jac_leaf(pt).numel() // 8
+            outs = npts * (times if every else 1)
+            record("double_points", f"{g} {variant}, times = {times}",
+                   [8, *jac_leaf(pt).shape[1:]],
+                   lambda: kernels.double_points(g, pt, times, every),
+                   lambda: kernels.double_points_plain(g, pt, times, every),
+                   3 * cd * ELEM_BYTES * (npts + outs),
+                   MONT_MULS["double", cd] * MADS_PER_MONT_MUL * npts * times)
         record("double_points", g + " (2^16 points, not a main-path shape)",
                [8, num_win, nb],
                lambda: kernels.double_points(g, p),
                lambda: kernels.double_points_plain(g, p),
                6 * cd * ELEM_BYTES * cnt,
                MONT_MULS["double", cd] * MADS_PER_MONT_MUL * cnt)
-        del p, q, p1
+        del p, q, p1, one
 
         # (f) scan_accumulate_mixed: all windows of the one chunk
         base = rand_packed(gen, cd, chunk_m, dev)
@@ -336,9 +378,7 @@ def check_kernels(dev, log2: int, int32_rate: float, reps: int):
 
         # (g) scan_accumulate_mixed_total: fixed-base evaluation, one lane
         # per scalar of the 2^(log2+1) bucket, one row per window
-        w = msm._choose_w_packed(2 * n) if 2 * n >= msm.FIXED_PACKED_MIN \
-            else msm._choose_w(2 * n)
-        outerc = -(-msm.SCALAR_BITS // w)
+        w = w_fixed
         table = rand_packed(gen, cd, outerc << w, dev)
         table[:: 1 << w] = 0        # digit 0 of every window: the identity
         digits = torch.randint(0, 1 << w, (outerc, 2 * n), device=dev,
@@ -440,6 +480,11 @@ def _first(point):
     if isinstance(point, tuple):
         return tuple(_first(c) for c in point)
     return point[..., 0].contiguous()
+
+
+def jac_leaf(point):
+    """One word tensor of a point (all share its shape)."""
+    return flat(point)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -635,7 +680,7 @@ def run_profiler(dev, log2: int):
 
 
 def profile_prove(dev, crs, primary, aux):
-    """Two more proves (``--profile``): one timed on the host clock, one
+    """Two more proves: one timed on the host clock, one
     under torch.profiler for the device's busy time (the sum over device
     kernels; tracing slows the host, so the idle share is reckoned against
     the untraced wall time) and the kernels that take most of it."""
@@ -730,7 +775,6 @@ def ptxas_summary():
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--log2", type=int, default=20)
-    ap.add_argument("--profile", action="store_true")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -755,8 +799,7 @@ def main() -> int:
     records = check_kernels(dev, args.log2, int32_rate, reps=5)
     torch.cuda.empty_cache()
     counts, proving_inputs = run_paths(dev, args.log2)
-    if args.profile:
-        profile_prove(dev, *proving_inputs)
+    profile_prove(dev, *proving_inputs)
     del proving_inputs
     run_oracle(dev, 1 << 12)
     counts["gather"] = run_gather(dev, args.log2)
@@ -765,6 +808,7 @@ def main() -> int:
     for r in records:
         r["launches_per_path"] = {p: c[r["name"]] for p, c in counts.items()}
         r["launches"] = sum(r["launches_per_path"].values())
+    emit({"launches": counts})
     emit({"kernels": records})
     print(card, flush=True)
     emit({"total_seconds": time.perf_counter() - t_start})

@@ -12,6 +12,128 @@
 #include <cstdint>
 #include "constants.cuh"
 
+// 32-bit add, subtract and multiply-add steps of a carry chain.  On the
+// card each is one PTX instruction on the condition-code carry flag
+// (add.cc, addc.cc, sub.cc, mad.lo.cc, madc.hi.cc, ...); the statements are
+// volatile, so they stay in program order, and nothing else between them
+// writes the flag.  Compiled for the host (a C++ compiler without CUDA, as
+// the tests do) the flag is a variable and each step is its definition.
+namespace cc {
+#if defined(__CUDA_ARCH__)
+#define OZ_CC_ASM2(op, a, b)                                            \
+  uint32_t r;                                                           \
+  asm volatile(op " %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));           \
+  return r
+#define OZ_CC_ASM3(op, a, b, c)                                         \
+  uint32_t r;                                                           \
+  asm volatile(op " %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c)); \
+  return r
+#else
+inline thread_local uint32_t flag = 0;
+#endif
+
+__host__ __device__ __forceinline__ uint32_t add_cc(uint32_t a, uint32_t b) {
+#if defined(__CUDA_ARCH__)
+  OZ_CC_ASM2("add.cc.u32", a, b);
+#else
+  const uint64_t s = (uint64_t)a + b;
+  flag = (uint32_t)(s >> 32);
+  return (uint32_t)s;
+#endif
+}
+__host__ __device__ __forceinline__ uint32_t addc_cc(uint32_t a, uint32_t b) {
+#if defined(__CUDA_ARCH__)
+  OZ_CC_ASM2("addc.cc.u32", a, b);
+#else
+  const uint64_t s = (uint64_t)a + b + flag;
+  flag = (uint32_t)(s >> 32);
+  return (uint32_t)s;
+#endif
+}
+__host__ __device__ __forceinline__ uint32_t addc(uint32_t a, uint32_t b) {
+#if defined(__CUDA_ARCH__)
+  OZ_CC_ASM2("addc.u32", a, b);
+#else
+  return a + b + flag;
+#endif
+}
+// the flag after a subtraction is its borrow
+__host__ __device__ __forceinline__ uint32_t sub_cc(uint32_t a, uint32_t b) {
+#if defined(__CUDA_ARCH__)
+  OZ_CC_ASM2("sub.cc.u32", a, b);
+#else
+  flag = a < b;
+  return a - b;
+#endif
+}
+__host__ __device__ __forceinline__ uint32_t subc_cc(uint32_t a, uint32_t b) {
+#if defined(__CUDA_ARCH__)
+  OZ_CC_ASM2("subc.cc.u32", a, b);
+#else
+  const uint64_t d = (uint64_t)a - b - flag;
+  flag = (uint32_t)(d >> 63);
+  return (uint32_t)d;
+#endif
+}
+__host__ __device__ __forceinline__ uint32_t subc(uint32_t a, uint32_t b) {
+#if defined(__CUDA_ARCH__)
+  OZ_CC_ASM2("subc.u32", a, b);
+#else
+  return a - b - flag;
+#endif
+}
+__host__ __device__ __forceinline__ uint32_t mul_lo(uint32_t a, uint32_t b) {
+  return a * b;
+}
+__host__ __device__ __forceinline__ uint32_t mul_hi(uint32_t a, uint32_t b) {
+#if defined(__CUDA_ARCH__)
+  return __umulhi(a, b);
+#else
+  return (uint32_t)(((uint64_t)a * b) >> 32);
+#endif
+}
+__host__ __device__ __forceinline__ uint32_t mad_lo_cc(uint32_t a, uint32_t b,
+                                                       uint32_t c) {
+#if defined(__CUDA_ARCH__)
+  OZ_CC_ASM3("mad.lo.cc.u32", a, b, c);
+#else
+  const uint64_t s = (uint64_t)(a * b) + c;
+  flag = (uint32_t)(s >> 32);
+  return (uint32_t)s;
+#endif
+}
+__host__ __device__ __forceinline__ uint32_t madc_lo_cc(uint32_t a, uint32_t b,
+                                                        uint32_t c) {
+#if defined(__CUDA_ARCH__)
+  OZ_CC_ASM3("madc.lo.cc.u32", a, b, c);
+#else
+  const uint64_t s = (uint64_t)(a * b) + c + flag;
+  flag = (uint32_t)(s >> 32);
+  return (uint32_t)s;
+#endif
+}
+__host__ __device__ __forceinline__ uint32_t madc_hi_cc(uint32_t a, uint32_t b,
+                                                        uint32_t c) {
+#if defined(__CUDA_ARCH__)
+  OZ_CC_ASM3("madc.hi.cc.u32", a, b, c);
+#else
+  const uint64_t s = (((uint64_t)a * b) >> 32) + c + flag;
+  flag = (uint32_t)(s >> 32);
+  return (uint32_t)s;
+#endif
+}
+__host__ __device__ __forceinline__ uint32_t madc_hi(uint32_t a, uint32_t b,
+                                                     uint32_t c) {
+#if defined(__CUDA_ARCH__)
+  OZ_CC_ASM3("madc.hi.u32", a, b, c);
+#else
+  return (uint32_t)((((uint64_t)a * b) >> 32) + c + flag);
+#endif
+}
+#undef OZ_CC_ASM2
+#undef OZ_CC_ASM3
+}  // namespace cc
+
 struct FrMod {
   static constexpr uint32_t N0INV = FR_N0INV;
   __device__ __forceinline__ static uint32_t p(int i) {
@@ -86,30 +208,24 @@ __device__ __forceinline__ bool is_zero(const Fp<M>& a) {
 template <class M>
 __device__ __forceinline__ Fp<M> reduce_once(const Fp<M>& a) {
   Fp<M> d;
-  uint64_t br = 0;
+  d.v[0] = cc::sub_cc(a.v[0], M::p(0));
 #pragma unroll
-  for (int k = 0; k < 8; k++) {
-    uint64_t s = (uint64_t)a.v[k] - M::p(k) - br;
-    d.v[k] = (uint32_t)s;
-    br = s >> 63;
-  }
+  for (int k = 1; k < 8; k++) d.v[k] = cc::subc_cc(a.v[k], M::p(k));
+  const uint32_t borrow = cc::subc(0u, 0u);  // all ones if a < p
   Fp<M> r;
 #pragma unroll
-  for (int k = 0; k < 8; k++) r.v[k] = br ? a.v[k] : d.v[k];
+  for (int k = 0; k < 8; k++) r.v[k] = borrow ? a.v[k] : d.v[k];
   return r;
 }
 
 template <class M>
 __device__ __forceinline__ Fp<M> add(const Fp<M>& a, const Fp<M>& b) {
   Fp<M> s;
-  uint64_t c = 0;
+  s.v[0] = cc::add_cc(a.v[0], b.v[0]);
 #pragma unroll
-  for (int k = 0; k < 8; k++) {
-    uint64_t t = (uint64_t)a.v[k] + b.v[k] + c;
-    s.v[k] = (uint32_t)t;
-    c = t >> 32;
-  }
-  return reduce_once(s);  // a + b < 2p < 2^255: no carry out of word 7
+  for (int k = 1; k < 7; k++) s.v[k] = cc::addc_cc(a.v[k], b.v[k]);
+  s.v[7] = cc::addc(a.v[7], b.v[7]);  // a + b < 2p < 2^255: no carry out
+  return reduce_once(s);
 }
 
 template <class M>
@@ -117,40 +233,28 @@ __device__ __forceinline__ Fp<M> dbl(const Fp<M>& a) {
   return add(a, a);
 }
 
+// a - b, plus p where that borrowed
 template <class M>
 __device__ __forceinline__ Fp<M> sub(const Fp<M>& a, const Fp<M>& b) {
   Fp<M> d;
-  uint64_t br = 0;
+  d.v[0] = cc::sub_cc(a.v[0], b.v[0]);
 #pragma unroll
-  for (int k = 0; k < 8; k++) {
-    uint64_t s = (uint64_t)a.v[k] - b.v[k] - br;
-    d.v[k] = (uint32_t)s;
-    br = s >> 63;
-  }
-  Fp<M> e;
-  uint64_t c = 0;
-#pragma unroll
-  for (int k = 0; k < 8; k++) {
-    uint64_t t = (uint64_t)d.v[k] + M::p(k) + c;
-    e.v[k] = (uint32_t)t;
-    c = t >> 32;
-  }
+  for (int k = 1; k < 8; k++) d.v[k] = cc::subc_cc(a.v[k], b.v[k]);
+  const uint32_t mask = cc::subc(0u, 0u);  // all ones if a < b
   Fp<M> r;
+  r.v[0] = cc::add_cc(d.v[0], M::p(0) & mask);
 #pragma unroll
-  for (int k = 0; k < 8; k++) r.v[k] = br ? e.v[k] : d.v[k];
+  for (int k = 1; k < 7; k++) r.v[k] = cc::addc_cc(d.v[k], M::p(k) & mask);
+  r.v[7] = cc::addc(d.v[7], M::p(7) & mask);
   return r;
 }
 
 template <class M>
 __device__ __forceinline__ Fp<M> neg(const Fp<M>& a) {
   Fp<M> d;
-  uint64_t br = 0;
+  d.v[0] = cc::sub_cc(M::p(0), a.v[0]);
 #pragma unroll
-  for (int k = 0; k < 8; k++) {
-    uint64_t s = (uint64_t)M::p(k) - a.v[k] - br;
-    d.v[k] = (uint32_t)s;
-    br = s >> 63;
-  }
+  for (int k = 1; k < 8; k++) d.v[k] = cc::subc_cc(M::p(k), a.v[k]);
   const bool z = is_zero(a);
   Fp<M> r;
 #pragma unroll
@@ -158,43 +262,106 @@ __device__ __forceinline__ Fp<M> neg(const Fp<M>& a) {
   return r;
 }
 
-// CIOS Montgomery product a * b * R^-1 mod p: eight rounds, each one row of
-// the product (8 multiply-adds) and one reduction row (8 multiply-adds) on
-// 64-bit accumulators, then one conditional subtract.
+// CIOS Montgomery product a * b * R^-1 mod p on PTX carry chains, with the
+// even/odd split of sppark's mont_t: the partial products a[j] * b[i] of
+// even j land in ``even`` (low word at j, high word at j + 1), those of odd
+// j in ``odd``, which stands one word higher, so each row of eight
+// products is one carry chain of mad.lo / mad.hi pairs and no word is
+// shifted.  The running value is even + 2^32 * odd.  A round adds
+// a * b[i] and m * p (m = even[0] * N0INV makes the low word zero), then
+// divides by 2^32 by trading the two arrays' roles: the next round's even
+// array is this round's odd one plus even[1], its odd array is even[2..7]
+// (the shift folded into the next row's multiply-adds).  The value stays
+// below 2p < 2^255 between rounds, so the odd array's own top carry is
+// always zero and the one carry chain that may leave the even array is
+// added into the odd array's top word.  After eight rounds one merge adds
+// the arrays and one conditional subtract makes the result canonical.
+namespace mont {
+
+// acc[j], acc[j + 1] = lo, hi of a[j] * bi for even j (a: 8 words, from
+// ``first`` on, every second one)
+__device__ __forceinline__ void mul_row(uint32_t* acc, const uint32_t* a,
+                                        uint32_t bi) {
+#pragma unroll
+  for (int j = 0; j < 8; j += 2) {
+    acc[j] = cc::mul_lo(a[j], bi);
+    acc[j + 1] = cc::mul_hi(a[j], bi);
+  }
+}
+
+// acc += sum over even j of a[j] * bi * 2^(32 j), one carry chain; the
+// carry out of acc[7] is left in the flag
+__device__ __forceinline__ void mad_row(uint32_t* acc, const uint32_t* a,
+                                        uint32_t bi) {
+  acc[0] = cc::mad_lo_cc(a[0], bi, acc[0]);
+  acc[1] = cc::madc_hi_cc(a[0], bi, acc[1]);
+#pragma unroll
+  for (int j = 2; j < 8; j += 2) {
+    acc[j] = cc::madc_lo_cc(a[j], bi, acc[j]);
+    acc[j + 1] = cc::madc_hi_cc(a[j], bi, acc[j + 1]);
+  }
+}
+
+// odd = (odd >> 64) + sum over even j of a[j] * bi * 2^(32 j), continuing
+// the carry chain in the flag; nothing leaves the top word
+__device__ __forceinline__ void mad_row_shift(uint32_t* odd, const uint32_t* a,
+                                              uint32_t bi) {
+#pragma unroll
+  for (int j = 0; j < 6; j += 2) {
+    odd[j] = cc::madc_lo_cc(a[j], bi, odd[j + 2]);
+    odd[j + 1] = cc::madc_hi_cc(a[j], bi, odd[j + 3]);
+  }
+  odd[6] = cc::madc_lo_cc(a[6], bi, 0u);
+  odd[7] = cc::madc_hi(a[6], bi, 0u);
+}
+
+// one round: value += a * bi, then += m * p with the low word made zero
+template <class M>
+__device__ __forceinline__ void cios_round(uint32_t* even, uint32_t* odd,
+                                      const uint32_t* a, const uint32_t* a_odd,
+                                      uint32_t bi, bool first) {
+  if (first) {
+    mul_row(odd, a_odd, bi);
+    mul_row(even, a, bi);
+  } else {
+    even[0] = cc::add_cc(even[0], odd[1]);
+    mad_row_shift(odd, a_odd, bi);
+    mad_row(even, a, bi);
+    odd[7] = cc::addc(odd[7], 0u);
+  }
+  const uint32_t m = even[0] * M::N0INV;
+  uint32_t p_even[8], p_odd[8];
+#pragma unroll
+  for (int j = 0; j < 8; j += 2) {
+    p_even[j] = M::p(j);
+    p_odd[j] = M::p(j + 1);
+  }
+  mad_row(odd, p_odd, m);   // its carry out is zero (see above)
+  mad_row(even, p_even, m);
+  odd[7] = cc::addc(odd[7], 0u);
+}
+
+}  // namespace mont
+
 template <class M>
 __device__ __forceinline__ Fp<M> mul(const Fp<M>& a, const Fp<M>& b) {
-  uint32_t t[9];
+  uint32_t even[8], odd[8], a_even[8], a_odd[8];
 #pragma unroll
-  for (int j = 0; j < 9; j++) t[j] = 0u;
-#pragma unroll
-  for (int i = 0; i < 8; i++) {
-    uint64_t c = 0;
-#pragma unroll
-    for (int j = 0; j < 8; j++) {
-      uint64_t s = (uint64_t)a.v[j] * b.v[i] + t[j] + c;
-      t[j] = (uint32_t)s;
-      c = s >> 32;
-    }
-    uint64_t s8 = (uint64_t)t[8] + c;
-    const uint32_t t8 = (uint32_t)s8;
-    const uint32_t t9 = (uint32_t)(s8 >> 32);
-    const uint32_t m = t[0] * M::N0INV;
-    uint64_t s = (uint64_t)m * M::p(0) + t[0];
-    c = s >> 32;
-#pragma unroll
-    for (int j = 1; j < 8; j++) {
-      s = (uint64_t)m * M::p(j) + t[j] + c;
-      t[j - 1] = (uint32_t)s;
-      c = s >> 32;
-    }
-    s = (uint64_t)t8 + c;
-    t[7] = (uint32_t)s;
-    t[8] = t9 + (uint32_t)(s >> 32);
+  for (int j = 0; j < 8; j += 2) {
+    a_even[j] = a.v[j];
+    a_odd[j] = a.v[j + 1];
   }
-  // the value is < 2p < 2^255, so t[8] is zero here
-  Fp<M> r;
 #pragma unroll
-  for (int k = 0; k < 8; k++) r.v[k] = t[k];
+  for (int i = 0; i < 8; i += 2) {
+    mont::cios_round<M>(even, odd, a_even, a_odd, b.v[i], i == 0);
+    mont::cios_round<M>(odd, even, a_even, a_odd, b.v[i + 1], false);
+  }
+  // value = (odd + 2^32 * even) / 2^32 with odd[0] = 0
+  Fp<M> r;
+  r.v[0] = cc::add_cc(even[0], odd[1]);
+#pragma unroll
+  for (int k = 1; k < 7; k++) r.v[k] = cc::addc_cc(even[k], odd[k + 1]);
+  r.v[7] = cc::addc(even[7], 0u);
   return reduce_once(r);
 }
 

@@ -87,26 +87,30 @@ __device__ __forceinline__ Pt<C> pt_double(const Pt<C>& p) {
 }
 
 // P (projective) + Q (affine, not the identity), complete in P
-// (algorithm 8): 11 products and 2 mul_b3
+// (algorithm 8): 11 products and 2 mul_b3.  The terms are those of
+// group_ops.py; they are computed in the order that keeps the fewest
+// coordinates alive (Z1's three products first, then X1 and Y1's, each
+// output product as soon as its operands exist), which is what keeps the
+// G2 scan inside its register budget.
 template <class C>
 __device__ __forceinline__ Pt<C> pt_mixed_add(const Pt<C>& p, const C& x2,
                                               const C& y2) {
-  C t0 = mul(p.x, x2);
-  C t1 = mul(p.y, y2);
-  C t3 = mul(add(x2, y2), add(p.x, p.y));
-  const C t4m = mul(x2, p.z);
-  const C t5m = mul(y2, p.z);
-  t3 = sub(t3, add(t0, t1));
-  const C t4 = add(t4m, p.x);
-  const C t5 = add(t5m, p.y);
-  const C three_t0 = add(dbl(t0), t0);
+  const C t4 = add(mul(x2, p.z), p.x);        // X1 + X2 Z1
+  const C t5 = add(mul(y2, p.z), p.y);        // Y1 + Y2 Z1
   const C b3z1 = mul_b3(p.z);
+  C t3 = mul(add(x2, y2), add(p.x, p.y));
+  const C t0 = mul(p.x, x2);
+  C t1 = mul(p.y, y2);
+  t3 = sub(t3, add(t0, t1));                  // X1 Y2 + X2 Y1
+  const C three_t0 = add(dbl(t0), t0);
   const C z3 = add(t1, b3z1);
   t1 = sub(t1, b3z1);
   const C y3 = mul_b3(t4);
   Pt<C> r;
-  r.x = sub(mul(t3, t1), mul(t5, y3));
-  r.y = add(mul(y3, three_t0), mul(t1, z3));
+  const C t3t1 = mul(t3, t1);
+  const C t1z3 = mul(t1, z3);
+  r.x = sub(t3t1, mul(t5, y3));
+  r.y = add(mul(y3, three_t0), t1z3);
   r.z = add(mul(z3, t5), mul(three_t0, t3));
   return r;
 }

@@ -58,10 +58,13 @@ __device__ __forceinline__ void store_coord(const G2Coord& c,
 }
 
 // One row's full add, kept out of line: with the formula inlined into the
-// row loop, nvcc 12.9 (cicc at -O3) crashes with a segmentation fault on
-// this file, as it does on scan_kernels.cu's mixed add.  The running sum
-// and the row pass through local memory once per row: under 100 words
-// beside the roughly 3,000 multiply-adds of a G1 add.
+// row loop, nvcc 12.9 (cicc at -O3) crashed with a segmentation fault on
+// this file, as it did on scan_kernels.cu's mixed add while field.cuh's
+// product was written with 64-bit multiply-adds; scan_kernels.cu inlines
+// its step since the product runs on carry chains, this file has not been
+// tried again.  The running sum and the row pass through local memory once
+// per row: under 100 words beside the roughly 3,000 multiply-adds of a G1
+// add.
 template <class C>
 __device__ __noinline__ void full_step(Pt<C>& carry, const Pt<C>& q) {
   carry = pt_add(carry, q);

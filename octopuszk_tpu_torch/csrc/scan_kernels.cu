@@ -19,13 +19,47 @@
 // Bound on this card: integer multiply throughput (a mixed add is 11 field
 // products and two mul_b3 per row, against 64 or 128 bytes read and, with
 // prefixes, 96 or 192 bytes written).  A row whose Y is zero is the
-// identity and leaves the running sum as it is.
+// identity and leaves the running sum as it is.  What the design does
+// about it:
+// * The product is field.cuh's carry-chain CIOS (PTX mad.lo.cc /
+//   madc.hi.cc), about half the instructions of 64-bit multiply-adds.
+// * The mixed add is inlined into the row loop, which is kept rolled
+//   (``#pragma unroll 1``): the running sum stays in registers and the
+//   scheduler sees the whole row.  nvcc 12.9's cicc crashed on this file at
+//   -O3 with the 64-bit product inlined into the loop; with the carry-chain
+//   product it compiles.  Out of line the step was 1.07x (G1) and 1.3x
+//   (G2) slower on the H100 (PERF.md).
+// * Registers: __launch_bounds__ asks for 16 resident warps per SM on G1
+//   (at most 128 registers, no spills) and 8 on G2 (at most 255): capped
+//   at 168 registers for 12 warps, the G2 step spills 0.8-1 KB a row to
+//   local memory and runs 1.5x slower on the H100 (PERF.md), so the wider
+//   register file wins over occupancy; rcb.cuh orders the mixed add so
+//   that few temporaries live at once.
+// * The gather's latency: each row's affine point is copied into shared
+//   memory by cp.async one row ahead (two stages per thread, 16-byte
+//   pieces), and its index two rows ahead, so the dependent loads overlap
+//   the row before.
+// Blocks of 128 threads: 32 and 64 measured the same.
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include "rcb.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
+
+// resident blocks of kThreads per SM that __launch_bounds__ asks the
+// register allocator to allow: 16 warps on G1, 8 on G2
+template <class C>
+struct Occupancy;
+template <>
+struct Occupancy<G1Coord> {
+  static constexpr int kMinBlocks = 4;
+};
+template <>
+struct Occupancy<G2Coord> {
+  static constexpr int kMinBlocks = 2;
+};
 
 struct OutPtrs {
   uint32_t* c[6];
@@ -64,15 +98,6 @@ __device__ __forceinline__ void store_at(const G2Coord& c, const OutPtrs& o,
   fp_store<FqMod>(o.c[2 * ci + 1], stride, off, c.c1);
 }
 
-// One row's mixed add, kept out of line: with the formula inlined into the
-// row loop, nvcc 12.9 (cicc at -O3) crashes on this file.  The running sum
-// therefore passes through local memory (served by L1) once per row: about
-// 40 words beside the roughly 3,000 multiply-adds of a G1 mixed add.
-template <class C>
-__device__ __noinline__ void mixed_step(Pt<C>& carry, const C& x, const C& y) {
-  carry = pt_mixed_add(carry, x, y);
-}
-
 template <class C>
 __device__ __forceinline__ void store_pt(const Pt<C>& p, const OutPtrs& o,
                                          size_t stride, size_t off) {
@@ -85,10 +110,12 @@ __device__ __forceinline__ void store_pt(const Pt<C>& p, const OutPtrs& o,
 // Prefix output component: int32[8, batch, rows, lanes]; totals output:
 // int32[8, batch, lanes].
 template <class C, int ROW_WORDS, bool WRITE_PREFIX>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, Occupancy<C>::kMinBlocks)
 scan_kernel(const uint32_t* __restrict__ packed,
             const int32_t* __restrict__ idx2, long long sb, long long sr,
             long long sl, int batch, int rows, int lanes, OutPtrs out) {
+  constexpr int kChunks = ROW_WORDS / 4;         // 16-byte pieces of a row
+  __shared__ uint4 stage[2][kThreads][kChunks];  // this thread's two rows
   const size_t t = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= (size_t)batch * lanes) return;
   const size_t b = t / lanes;
@@ -100,16 +127,37 @@ scan_kernel(const uint32_t* __restrict__ packed,
   const int32_t* ix = idx2 + (long long)b * sb + (long long)l * sl;
   const size_t stride = WRITE_PREFIX ? (size_t)batch * rows * lanes
                                      : (size_t)batch * lanes;
+  auto fetch = [&](uint32_t e, int s) {
+    const uint4* src =
+        reinterpret_cast<const uint4*>(packed + (size_t)(e >> 1) * ROW_WORDS);
+#pragma unroll
+    for (int k = 0; k < kChunks; k++)
+      __pipeline_memcpy_async(&stage[s][threadIdx.x][k], src + k, 16);
+    __pipeline_commit();
+  };
+  uint32_t e = rows > 0 ? (uint32_t)ix[0] : 0u;
+  if (rows > 0) fetch(e, 0);
+  uint32_t e_next = rows > 1 ? (uint32_t)ix[sr] : 0u;
+#pragma unroll 1
   for (int r = 0; r < rows; r++) {
-    const uint32_t e = (uint32_t)ix[(long long)r * sr];
     C x, y;
-    load_affine(packed + (size_t)(e >> 1) * ROW_WORDS, x, y);
+    if (r + 1 < rows)
+      fetch(e_next, (r + 1) & 1);
+    else
+      __pipeline_commit();                       // keeps the group count
+    const uint32_t e_after =
+        r + 2 < rows ? (uint32_t)ix[(long long)(r + 2) * sr] : 0u;
+    __pipeline_wait_prior(1);                    // row r has landed
+    load_affine(reinterpret_cast<const uint32_t*>(stage[r & 1][threadIdx.x]),
+                x, y);
     if (!is_zero(y)) {
       if (e & 1u) y = neg(y);
-      mixed_step(carry, x, y);
+      carry = pt_mixed_add(carry, x, y);
     }
     if (WRITE_PREFIX)
       store_pt(carry, out, stride, (b * rows + r) * lanes + l);
+    e = e_next;
+    e_next = e_after;
   }
   if (!WRITE_PREFIX) store_pt(carry, out, stride, b * lanes + l);
 }

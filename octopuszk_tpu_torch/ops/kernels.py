@@ -168,7 +168,8 @@ def lib():
         cdll.oz_mont_mul.argtypes = [ci, vp, vp, vp, ll, vp]
         cdll.oz_mul_sub.argtypes = [ci, vp, vp, vp, vp, ll, vp]
         cdll.oz_add_points.argtypes = [ci, addrs, addrs, addrs, ll, vp]
-        cdll.oz_double_points.argtypes = [ci, addrs, addrs, ll, vp]
+        cdll.oz_double_points.argtypes = [ci, addrs, addrs, ll, ci, ci,
+                                          vp]
         cdll.oz_scan_mixed.argtypes = [ci, ci, vp, vp, ll, ll, ll, ci, ci, ci,
                                        addrs, vp]
         cdll.oz_scan_full.argtypes = [ci, addrs, ll, vp, ll, ll, ll, ci, ci,
@@ -360,22 +361,43 @@ def add_points(group_name: str, p, q):
     return rebuild_coords(outs, cd)
 
 
-def double_points_plain(group_name: str, p):
+def double_points_plain(group_name: str, p, times: int = 1,
+                        every_step: bool = False):
+    """``times`` plain doublings; with ``every_step`` the intermediates
+    [2^1]P .. [2^times]P stacked on a new trailing axis."""
     from octopuszk_tpu_torch.curves import group_ops
-    return group_ops.double_formula(plain_ops(group_name), p)
+    ops = plain_ops(group_name)
+    steps = []
+    for _ in range(times):
+        p = group_ops.double_formula(ops, p)
+        if every_step:
+            steps.append(group_ops.flatten_coords(p))
+    if not every_step:
+        return p
+    return group_ops.rebuild_coords(
+        [torch.stack(cs, dim=-1) for cs in zip(*steps)], ops.coord_dim)
 
 
-def double_points(group_name: str, p):
-    """Batched complete projective double, [2]P."""
+def double_points(group_name: str, p, times: int = 1,
+                  every_step: bool = False):
+    """Batched complete projective doubling chain: [2^times]P in one launch.
+    With ``every_step`` it returns every intermediate [2^j]P, j = 1 ..
+    times, on a new trailing axis of each coordinate."""
     from octopuszk_tpu_torch.curves.group_ops import rebuild_coords
+    if times < 1:
+        raise ValueError(f"times must be at least 1, got {times}")
     cd, (fp_,) = _point_operands(group_name, p)
     if not fp_[0].is_cuda:
-        return double_points_plain(group_name, rebuild_coords(fp_, cd))
-    outs = [torch.empty_like(t) for t in fp_]
+        return double_points_plain(group_name, rebuild_coords(fp_, cd), times,
+                                   every_step)
+    shape = fp_[0].shape + ((times,) if every_step else ())
+    outs = [torch.empty(shape, dtype=torch.int32, device=fp_[0].device)
+            for _ in fp_]
     if outs[0].numel() == 0:
         return rebuild_coords(outs, cd)
     rc = lib().oz_double_points(cd, _addr_array(fp_), _addr_array(outs),
-                                _count(fp_[0]), _stream())
+                                _count(fp_[0]), times, int(bool(every_step)),
+                                _stream())
     _check(rc, "double_points")
     LAUNCHES["double_points"] += 1
     return rebuild_coords(outs, cd)
@@ -399,6 +421,8 @@ def _scan_operands(group_name: str, packed, idx2):
         raise TypeError("idx2 must be int32[batch, rows, lanes]")
     if idx2.device != packed.device:
         raise ValueError("operands lie on different devices")
+    if packed.is_cuda and packed.data_ptr() % 16 != 0:
+        raise ValueError("packed base must be 16-byte aligned")
     return cd
 
 

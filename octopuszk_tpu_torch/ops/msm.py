@@ -122,19 +122,22 @@ def _signed_digits(scalars_raw, c: int, num_win: int):
 def _window_table(group, base_point, w: int, outerc: int):
     """Multiples table: T[win][d] = [d * 2^(w*win)] G, coords [8, outerc,
     2^w].  Per window, w bit-steps add [2^b]G_win into every table slot
-    whose digit has bit b set."""
+    whose digit has bit b set.  The powers [2^j]G come from one doubling
+    chain (the last of its outerc * w steps is not used)."""
     B = 1 << w
     dev = jac.leaf(base_point).device
     iota = torch.arange(B, device=dev)
+    powers = kernels.double_points(group.ops.group_name, base_point,
+                                   times=outerc * w, every_step=True)
     rows = []
-    g = base_point                 # running [2^(w*win)] G, single point
-    for _ in range(outerc):
+    for win in range(outerc):
         row = group.infinity((B,), dev)
         for b in range(w):
+            j = win * w + b
             has_bit = ((iota >> b) & 1) == 1
-            g_b = _map_coords(g, lambda c: c[..., None])
+            g_b = (_map_coords(base_point, lambda c: c[..., None]) if j == 0
+                   else _map_coords(powers, lambda c: c[..., j - 1:j]))
             row = group.select(has_bit, group.add(row, g_b), row)
-            g = group.double(g)
         rows.append(row)
     return tuple(
         tuple(torch.stack(cs, dim=1) for cs in zip(*coords))
@@ -352,8 +355,9 @@ def _abel(group, cum, doublings: int, minus_last: bool):
     rest = _map_coords(cum, lambda a: a[..., :B - 1])
     sum_rest = _scan_sum(group, rest, B - 1)
     shifted = last
-    for _ in range(doublings):
-        shifted = group.double(shifted)
+    if doublings:
+        shifted = kernels.double_points(group.ops.group_name, last,
+                                        times=doublings)
     if minus_last:
         shifted = group.add(shifted, group.negate(last))
     return group.add(shifted, group.negate(sum_rest))
@@ -427,9 +431,8 @@ def _combine_windows(group, window_results, c: int):
         if acc is None:
             acc = wj
             continue
-        for _ in range(c):
-            acc = group.double(acc)
-        acc = group.add(acc, wj)
+        acc = group.add(kernels.double_points(group.ops.group_name, acc,
+                                              times=c), wj)
     return acc
 
 
