@@ -45,8 +45,12 @@ beside its bound, its plain version's and, where one exists, a library
 call's, and its launches per path; a ``launches`` line holds the counts per path
 and kernel; the ``env`` line holds ptxas's registers and spills for every
 kernel.  ``double_points`` has one record per doubling chain of the main
-path (the Abel sum's, the window combine's, the window table's), timed per
-chain: one launch each.
+path (the Abel sum's, the window table's; the window combine's is now
+inside ``combine_windows``), timed per chain: one launch each.  The
+chains of ``mont_mul`` and ``add_points`` that run as one launch each
+(``mont_pow``, ``batch_inv_rows``, ``window_table``, ``lane_row_sums``,
+``tree_sum``, ``prefix_sum``, ``combine_windows``) have records at the
+main path's shapes.
 
 ``--log2 N`` cuts the constraint count to 2^N (never below 2^18 on the
 card: below that the 4-step NTT is not run).
@@ -92,6 +96,14 @@ REPLACES = {
     "scan_accumulate_mixed_total": "octopuszk_tpu/ops/pallas_ops.py:434",
     "scan_accumulate": "octopuszk_tpu/ops/pallas_ops.py:272",
     "row_gather": "scripts/gather_experiment.py:30",
+    # the chains of (b) and (d) launches that run as one launch each
+    "mont_pow": "octopuszk_tpu/ops/pallas_ops.py:451",
+    "batch_inv_rows": "octopuszk_tpu/ops/pallas_ops.py:451",
+    "window_table": "octopuszk_tpu/ops/pallas_ops.py:181",
+    "combine_windows": "octopuszk_tpu/ops/pallas_ops.py:181",
+    "lane_row_sums": "octopuszk_tpu/ops/pallas_ops.py:181",
+    "tree_sum": "octopuszk_tpu/ops/pallas_ops.py:181",
+    "prefix_sum": "octopuszk_tpu/ops/pallas_ops.py:181",
 }
 SOURCE = {
     "butterfly": "octopuszk_tpu_torch/csrc/field_kernels.cu",
@@ -103,13 +115,22 @@ SOURCE = {
     "scan_accumulate_mixed_total": "octopuszk_tpu_torch/csrc/scan_kernels.cu",
     "scan_accumulate": "octopuszk_tpu_torch/csrc/scan_full_kernels.cu",
     "row_gather": "octopuszk_tpu_torch/csrc/gather_kernels.cu",
+    "mont_pow": "octopuszk_tpu_torch/csrc/field_kernels.cu",
+    "batch_inv_rows": "octopuszk_tpu_torch/csrc/field_kernels.cu",
+    "window_table": "octopuszk_tpu_torch/csrc/table_kernels.cu",
+    "combine_windows": "octopuszk_tpu_torch/csrc/table_kernels.cu",
+    "lane_row_sums": "octopuszk_tpu_torch/csrc/bucket_kernels.cu",
+    "tree_sum": "octopuszk_tpu_torch/csrc/bucket_kernels.cu",
+    "prefix_sum": "octopuszk_tpu_torch/csrc/prefix_kernels.cu",
 }
 # the kernels each path is built on: each must launch at least once there
-_PROVE_KERNELS = {"butterfly", "mont_mul", "mul_sub", "add_points",
-                  "double_points"}
+_BUCKET_KERNELS = {"add_points", "prefix_sum", "lane_row_sums", "tree_sum",
+                   "combine_windows"}
+_PROVE_KERNELS = {"butterfly", "mont_mul", "mul_sub", "double_points",
+                  "mont_pow"} | _BUCKET_KERNELS
 _GROTH16_KERNELS = set(REPLACES) - {"scan_accumulate", "row_gather"}
-_FIXED_KERNELS = {"add_points", "double_points", "mont_mul",
-                  "scan_accumulate_mixed_total"}
+_FIXED_KERNELS = {"double_points", "window_table", "mont_mul",
+                  "batch_inv_rows", "scan_accumulate_mixed_total"}
 REQUIRED = {
     "packed": _GROTH16_KERNELS,
     "unpacked": _PROVE_KERNELS | {"scan_accumulate"},
@@ -121,11 +142,11 @@ REQUIRED = {
 # PROFILER_CUTS.
 PROFILER_APPS = [
     (["fft"], {"butterfly", "mont_mul"}),
-    (["lagrange"], {"mont_mul"}),
+    (["lagrange"], {"mont_mul", "mont_pow"}),
     (["fmsm-g1"], _FIXED_KERNELS),
     (["fmsm-g2"], _FIXED_KERNELS),
-    (["vmsm-g1"], _FIXED_KERNELS | {"scan_accumulate_mixed"}),
-    (["vmsm-g2"], _FIXED_KERNELS | {"scan_accumulate_mixed"}),
+    (["vmsm-g1"], _FIXED_KERNELS | _BUCKET_KERNELS | {"scan_accumulate_mixed"}),
+    (["vmsm-g2"], _FIXED_KERNELS | _BUCKET_KERNELS | {"scan_accumulate_mixed"}),
     (["relation"], {"mont_mul"}),
     (["witness"], {"butterfly", "mont_mul", "mul_sub"}),
     (["zksnark"], _GROTH16_KERNELS),
@@ -280,18 +301,38 @@ def check_kernels(dev, log2: int, int32_rate: float, reps: int):
                    lambda: kernels.butterfly(spec, a, b, w, dif),
                    lambda: kernels.butterfly_plain(spec, a, b, w, dif),
                    5 * ELEM_BYTES * half, MADS_PER_MONT_MUL * half)
-    # (b) mont_mul: Fr at the NTT size, Fq at the packed-query size; then
-    # the shapes of most of its launches: a row of batch_inv_rows (4,096
-    # lanes) and the Fermat chains of inversions (1 to 15 elements)
-    for spec, tag, cnt in ((FR, "Fr", n), (FQ, "Fq", 2 * n),
-                           (FQ, "Fq, a batch_inv_rows row", 4096),
-                           (FQ, "Fq, a Fermat chain step", 15),
-                           (FQ, "Fq, a Fermat chain step", 1)):
+    # (b) mont_mul: Fr at the NTT size, Fq at the packed-query size
+    for spec, tag, cnt in ((FR, "Fr", n), (FQ, "Fq", 2 * n)):
         a, b = rand_field(gen, (cnt,), dev), rand_field(gen, (cnt,), dev)
         record("mont_mul", tag, [8, cnt],
                lambda: kernels.mont_mul(spec, a, b),
                lambda: kernels.mont_mul_plain(spec, a, b),
                3 * ELEM_BYTES * cnt, MADS_PER_MONT_MUL * cnt)
+    # (b)'s chains: the Fermat inversion (q - 2) of one element (an MSM
+    # result's affine conversion) and of 4,096; the batch inversion of a
+    # packed query (2^(log2+1) points, some zero) and of a fixed-base table
+    # (17 windows of 2^15 at 2^20).  A batch inversion needs 3 products per
+    # non-zero element and one Fermat chain, however it groups its lanes.
+    pm2 = FQ.p_minus_2
+    fermat = (pm2.bit_length() - 1) + (bin(pm2).count("1") - 1)
+    for cnt in (1, 4096):
+        a = rand_field(gen, (cnt,), dev)
+        record("mont_pow", "Fq, q - 2", [8, cnt],
+               lambda: kernels.mont_pow(FQ, a, pm2),
+               lambda: kernels.mont_pow_plain(FQ, a, pm2),
+               2 * ELEM_BYTES * cnt, MADS_PER_MONT_MUL * fermat * cnt)
+    w_table = msm._choose_w_packed(2 * n)
+    table_entries = -(-msm.SCALAR_BITS // w_table) << w_table
+    for cnt in (2 * n, table_entries):
+        a = rand_field(gen, (cnt,), dev)
+        a[:, torch.rand(cnt, device=dev, generator=gen) < 0.05] = 0
+        nonzero = int((a != 0).any(0).sum())
+        record("batch_inv_rows", f"Fq, {min(kernels.INV_LANES, cnt)} lanes",
+               [8, cnt],
+               lambda: kernels.batch_inv_rows(FQ, a),
+               lambda: kernels.batch_inv_rows_plain(FQ, a),
+               2 * ELEM_BYTES * cnt,
+               MADS_PER_MONT_MUL * (3 * nonzero + fermat))
     # (c) mul_sub
     for spec, tag in ((FR, "Fr"), (FQ, "Fq")):
         a, b, c = (rand_field(gen, (n,), dev) for _ in range(3))
@@ -311,22 +352,72 @@ def check_kernels(dev, log2: int, int32_rate: float, reps: int):
         else msm._choose_w(2 * n)
     outerc = -(-msm.SCALAR_BITS // w_fixed)
     for cd, g in ((1, "G1"), (2, "G2")):
-        # (d) add_points at the bucket phase's shape [num_win, 2^(c-1)+1],
-        # then at the scans over bucket rows (msm._scan_sum's 2,048 lanes,
-        # msm._hs_prefix over 4,096 lanes) that hold most of its launches
-        for variant, shape in ((g, (num_win, nb)),
-                               (g + ", a _scan_sum row", (num_win, 2048)),
-                               (g + ", a lane-prefix step", (num_win, lanes))):
-            p = rand_point(gen, cd, shape, dev)
-            q = rand_point(gen, cd, shape, dev)
-            cnt = shape[0] * shape[1]
-            record("add_points", variant, [8, *shape],
-                   lambda: kernels.add_points(g, p, q),
-                   lambda: kernels.add_points_plain(g, p, q),
-                   9 * cd * ELEM_BYTES * cnt,
-                   MONT_MULS["add", cd] * MADS_PER_MONT_MUL * cnt)
+        pt_bytes = 3 * cd * ELEM_BYTES
+        add_mads = MONT_MULS["add", cd] * MADS_PER_MONT_MUL
+        # (d) add_points at the bucket phase's shape [num_win, 2^(c-1)+1]
         p = rand_point(gen, cd, (num_win, nb), dev)
+        q = rand_point(gen, cd, (num_win, nb), dev)
         cnt = num_win * nb
+        record("add_points", g, [8, num_win, nb],
+               lambda: kernels.add_points(g, p, q),
+               lambda: kernels.add_points_plain(g, p, q),
+               3 * pt_bytes * cnt, add_mads * cnt)
+        # (d)'s chains at the main path's shapes: the fixed-base table of
+        # one base; the Abel sum's row loop (msm._scan_sum over 2^(c-1)
+        # buckets in 2,048 lanes) and its tree across the lanes; the lane
+        # prefix of the bucket sums (4,096 lanes); the window combine
+        # (an entry's masked adds run in increasing bit order, so the entry
+        # without its top bit is the prefix of its chain: the same words
+        # need one add per entry with a non-zero digit)
+        base1 = rand_point(gen, cd, (), dev)
+        powers = rand_point(gen, cd, (outerc * w_fixed,), dev)
+        entries = outerc << w_fixed
+        record("window_table", f"{g}, w = {w_fixed}, outerc = {outerc}",
+               [8, outerc, 1 << w_fixed],
+               lambda: kernels.window_table(g, base1, powers, w_fixed, outerc),
+               lambda: kernels.window_table_plain(g, base1, powers, w_fixed,
+                                                  outerc),
+               pt_bytes * (1 + outerc * w_fixed + entries),
+               add_mads * (entries - outerc))
+        del base1, powers
+        nbk = nb - 1
+        width = min(2048, nbk)
+        rows_s = -(-nbk // width)
+        rest = rand_point(gen, cd, (num_win, nbk), dev)
+        record("lane_row_sums", f"{g} [{num_win} win, {width} lanes, "
+               f"{rows_s} rows]", [8, num_win, nbk],
+               lambda: kernels.lane_row_sums(g, rest, width),
+               lambda: kernels.lane_row_sums_plain(g, rest, width),
+               pt_bytes * num_win * (nbk + width),
+               add_mads * num_win * width * rows_s)
+        del rest
+        tot = rand_point(gen, cd, (num_win, width), dev)
+        lt = rand_point(gen, cd, (num_win, lanes), dev)
+        tree_nodes = sum(-(-width // (2 << lv))
+                         for lv in range((width - 1).bit_length()))
+        levels = (lanes - 1).bit_length()
+        record("tree_sum", f"{g} [{num_win} win, {width} lanes]",
+               [8, num_win, width],
+               lambda: kernels.tree_sum(g, tot),
+               lambda: kernels.tree_sum_plain(g, tot),
+               pt_bytes * num_win * (width + 1),
+               add_mads * num_win * tree_nodes)
+        record("prefix_sum", f"{g} [{num_win} win, {lanes} lanes]",
+               [8, num_win, lanes],
+               lambda: kernels.prefix_sum(g, lt),
+               lambda: kernels.prefix_sum_plain(g, lt),
+               2 * pt_bytes * num_win * lanes,
+               add_mads * num_win * lanes * levels)
+        del tot, lt
+        wins = rand_point(gen, cd, (num_win,), dev)
+        record("combine_windows", f"{g} [{num_win} windows], c = {cwin}",
+               [8, num_win],
+               lambda: kernels.combine_windows(g, wins, cwin),
+               lambda: kernels.combine_windows_plain(g, wins, cwin),
+               pt_bytes * (num_win + 1),
+               MADS_PER_MONT_MUL * num_win * (
+                   cwin * MONT_MULS["double", cd] + MONT_MULS["add", cd]))
+        del wins
         # (e) double_points: one double of one point per window, the
         # doubling chains of the main path in one launch each (the Abel
         # sum's c - 1 on one point per window, the window combine's c on
@@ -341,7 +432,8 @@ def check_kernels(dev, log2: int, int32_rate: float, reps: int):
         one = _first(p1)
         for variant, pt, times, every in (
                 ("Abel chain", p1, cwin - 1, False),
-                ("window combine chain", one, cwin, False),
+                ("window combine chain (off the path: combine_windows)",
+                 one, cwin, False),
                 ("window table chain, every step", one, outerc * w_fixed,
                  True)):
             npts = jac_leaf(pt).numel() // 8
@@ -794,7 +886,8 @@ def main() -> int:
         "cuda": torch.version.cuda, "card": card,
         "clocks_max_sm_mhz": sm_mhz,
         "int32_mads_per_s_derived": int32_rate,
-        "build_seconds": kernels.build_seconds, "ptxas": ptxas_summary()}})
+        "build_seconds": kernels.build_seconds,
+        "ptxas": ptxas_summary()}})
 
     records = check_kernels(dev, args.log2, int32_rate, reps=5)
     torch.cuda.empty_cache()

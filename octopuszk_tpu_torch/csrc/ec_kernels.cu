@@ -35,51 +35,6 @@ namespace {
 
 constexpr int kThreads = 128;
 
-// one pointer per base-field component of each coordinate:
-// G1 (X, Y, Z), G2 (X.c0, X.c1, Y.c0, Y.c1, Z.c0, Z.c1)
-struct PointPtrs {
-  uint32_t* c[6];
-};
-
-__device__ __forceinline__ void load_coord(G1Coord& c, const PointPtrs& p,
-                                           int ci, size_t n, size_t i) {
-  c = fp_load<FqMod>(p.c[ci], n, i);
-}
-__device__ __forceinline__ void load_coord(G2Coord& c, const PointPtrs& p,
-                                           int ci, size_t n, size_t i) {
-  c.c0 = fp_load<FqMod>(p.c[2 * ci], n, i);
-  c.c1 = fp_load<FqMod>(p.c[2 * ci + 1], n, i);
-}
-__device__ __forceinline__ void store_coord(const G1Coord& c,
-                                            const PointPtrs& p, int ci,
-                                            size_t n, size_t i) {
-  fp_store<FqMod>(p.c[ci], n, i, c);
-}
-__device__ __forceinline__ void store_coord(const G2Coord& c,
-                                            const PointPtrs& p, int ci,
-                                            size_t n, size_t i) {
-  fp_store<FqMod>(p.c[2 * ci], n, i, c.c0);
-  fp_store<FqMod>(p.c[2 * ci + 1], n, i, c.c1);
-}
-
-template <class C>
-__device__ __forceinline__ Pt<C> load_point(const PointPtrs& p, size_t n,
-                                            size_t i) {
-  Pt<C> r;
-  load_coord(r.x, p, 0, n, i);
-  load_coord(r.y, p, 1, n, i);
-  load_coord(r.z, p, 2, n, i);
-  return r;
-}
-
-template <class C>
-__device__ __forceinline__ void store_point(const Pt<C>& r, const PointPtrs& p,
-                                            size_t n, size_t i) {
-  store_coord(r.x, p, 0, n, i);
-  store_coord(r.y, p, 1, n, i);
-  store_coord(r.z, p, 2, n, i);
-}
-
 template <class C>
 __global__ void __launch_bounds__(kThreads)
 add_points_kernel(PointPtrs p, PointPtrs q, PointPtrs out, size_t n) {
@@ -100,13 +55,6 @@ double_points_kernel(PointPtrs p, PointPtrs out, size_t n, int times) {
     if (EVERY_STEP) store_point(q, out, n * times, i * times + j);
   }
   if (!EVERY_STEP) store_point(q, out, n, i);
-}
-
-PointPtrs make_ptrs(const unsigned long long* addrs, int count) {
-  PointPtrs p;
-  for (int k = 0; k < 6; k++)
-    p.c[k] = k < count ? (uint32_t*)(uintptr_t)addrs[k] : nullptr;
-  return p;
 }
 
 }  // namespace

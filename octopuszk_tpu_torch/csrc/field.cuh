@@ -369,3 +369,66 @@ template <class M>
 __device__ __forceinline__ Fp<M> sqr(const Fp<M>& a) {
   return mul(a, a);
 }
+
+// An exponent known to the host: eight little-endian words and the index
+// of its top set bit (-1 for the exponent 0).
+struct Exponent {
+  uint32_t w[8];
+  int top;
+};
+
+// a^e by square-and-multiply from the most significant bit, as
+// fields/fp.py pow_const: acc = a, then for each lower bit acc = acc^2 and,
+// where the bit is set, acc = acc * a.  a^0 is one.  Every step waits on
+// the one before, so a thread's chain is its dependent latency: 253
+// squares and 109 products for BN254's q - 2.
+template <class M>
+__device__ __forceinline__ Fp<M> pow_exp(const Fp<M>& a, const Exponent& e) {
+  if (e.top < 0) return fp_one<M>();
+  Fp<M> acc = a;
+#pragma unroll 1
+  for (int b = e.top - 1; b >= 0; b--) {
+    acc = sqr(acc);
+    if ((e.w[b >> 5] >> (b & 31)) & 1u) acc = mul(acc, a);
+  }
+  return acc;
+}
+
+// One lane of the two-level Montgomery batch inversion of a word-major
+// [8, n] batch (fields/fp.py batch_inv_rows): lane l owns the positions
+// l, l + lanes, l + 2 lanes, ... below n.  The forward sweep writes each
+// position's exclusive prefix product into ``out`` (a zero counts as one),
+// the lane total is raised to ``pm2`` = p - 2 (Fermat; the total is
+// never zero), and the backward sweep overwrites each prefix with
+// prefix * (inverse of the running product up to and including it), the
+// position's inverse.  A zero maps to zero.  The inverse of an element is
+// unique and canonical, so how positions are grouped into lanes does not
+// change a word of the result.
+template <class M>
+__device__ __forceinline__ void batch_inv_lane(const uint32_t* a,
+                                               uint32_t* out, size_t n,
+                                               size_t lanes, size_t l,
+                                               const Exponent& pm2) {
+  if (l >= n) return;
+  const size_t rows = (n - 1 - l) / lanes + 1;
+  Fp<M> carry = fp_one<M>();
+#pragma unroll 1
+  for (size_t r = 0; r < rows; r++) {
+    const size_t pos = l + r * lanes;
+    fp_store<M>(out, n, pos, carry);
+    const Fp<M> x = fp_load<M>(a, n, pos);
+    if (!is_zero(x)) carry = mul(carry, x);
+  }
+  carry = pow_exp(carry, pm2);
+#pragma unroll 1
+  for (size_t r = rows; r-- > 0;) {
+    const size_t pos = l + r * lanes;
+    const Fp<M> x = fp_load<M>(a, n, pos);
+    if (is_zero(x)) {
+      fp_store<M>(out, n, pos, fp_zero<M>());
+      continue;
+    }
+    fp_store<M>(out, n, pos, mul(carry, fp_load<M>(out, n, pos)));
+    carry = mul(carry, x);
+  }
+}

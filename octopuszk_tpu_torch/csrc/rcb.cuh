@@ -114,3 +114,242 @@ __device__ __forceinline__ Pt<C> pt_mixed_add(const Pt<C>& p, const C& x2,
   r.z = add(mul(z3, t5), mul(three_t0, t3));
   return r;
 }
+
+// ---------------------------------------------------------------------------
+// Point batches in device memory: one pointer per base-field component of
+// each coordinate, G1 (X, Y, Z), G2 (X.c0, X.c1, Y.c0, Y.c1, Z.c0, Z.c1);
+// each component word-major, word k of point i at k * stride + i.
+// ---------------------------------------------------------------------------
+
+struct PointPtrs {
+  uint32_t* c[6];
+};
+
+// from the addresses the wrappers pass (3 for G1, 6 for G2); host code
+inline PointPtrs make_ptrs(const unsigned long long* addrs, int count) {
+  PointPtrs p;
+  for (int k = 0; k < 6; k++)
+    p.c[k] = k < count ? (uint32_t*)(uintptr_t)addrs[k] : nullptr;
+  return p;
+}
+
+__device__ __forceinline__ void load_coord(G1Coord& c, const PointPtrs& p,
+                                           int ci, size_t n, size_t i) {
+  c = fp_load<FqMod>(p.c[ci], n, i);
+}
+__device__ __forceinline__ void load_coord(G2Coord& c, const PointPtrs& p,
+                                           int ci, size_t n, size_t i) {
+  c.c0 = fp_load<FqMod>(p.c[2 * ci], n, i);
+  c.c1 = fp_load<FqMod>(p.c[2 * ci + 1], n, i);
+}
+__device__ __forceinline__ void store_coord(const G1Coord& c,
+                                            const PointPtrs& p, int ci,
+                                            size_t n, size_t i) {
+  fp_store<FqMod>(p.c[ci], n, i, c);
+}
+__device__ __forceinline__ void store_coord(const G2Coord& c,
+                                            const PointPtrs& p, int ci,
+                                            size_t n, size_t i) {
+  fp_store<FqMod>(p.c[2 * ci], n, i, c.c0);
+  fp_store<FqMod>(p.c[2 * ci + 1], n, i, c.c1);
+}
+
+template <class C>
+__device__ __forceinline__ Pt<C> load_point(const PointPtrs& p, size_t n,
+                                            size_t i) {
+  Pt<C> r;
+  load_coord(r.x, p, 0, n, i);
+  load_coord(r.y, p, 1, n, i);
+  load_coord(r.z, p, 2, n, i);
+  return r;
+}
+
+template <class C>
+__device__ __forceinline__ void store_point(const Pt<C>& r, const PointPtrs& p,
+                                            size_t n, size_t i) {
+  store_coord(r.x, p, 0, n, i);
+  store_coord(r.y, p, 1, n, i);
+  store_coord(r.z, p, 2, n, i);
+}
+
+template <class C>
+__device__ __forceinline__ Pt<C> pt_identity() {
+  Pt<C> r;
+  coord_zero(r.x);
+  coord_one(r.y);
+  coord_zero(r.z);
+  return r;
+}
+
+// ---------------------------------------------------------------------------
+// The loops of ops/msm.py and curves/group_ops.py that run as one launch
+// each.  Every function keeps the adds of the loop it stands for, with the
+// same operands in the same order, the adds with the identity included
+// (the complete add of P and the identity returns a multiple of P's
+// coordinates, not P's words), so the projective words that come out are
+// the plain versions'.
+// ---------------------------------------------------------------------------
+
+// Entry d of window ``win`` of a fixed-base table (msm._window_table):
+// from the identity, for b = 0 .. w-1 where bit b of d is set, add
+// [2^(win w + b)] G.  [2^0] G is ``base`` (one point); [2^j] G for j >= 1
+// is point j - 1 of ``powers`` (npow points, the doubling chain).
+template <class C>
+__device__ __forceinline__ Pt<C> window_entry(const PointPtrs& base,
+                                              const PointPtrs& powers,
+                                              size_t npow, int win,
+                                              unsigned d, int w) {
+  Pt<C> acc = pt_identity<C>();
+#pragma unroll 1
+  for (int b = 0; b < w; b++) {
+    if (!((d >> b) & 1u)) continue;
+    const int j = win * w + b;
+    acc = pt_add(acc, j == 0 ? load_point<C>(base, 1, 0)
+                             : load_point<C>(powers, npow, (size_t)j - 1));
+  }
+  return acc;
+}
+
+// The row loop of msm._scan_sum for one lane: from the identity, add the
+// lane's ``rows`` positions lane * rows + r of the batch row that starts
+// at ``at``, in order; a position at or past n is the identity padding.
+template <class C>
+__device__ __forceinline__ Pt<C> lane_row_sum(const PointPtrs& p,
+                                              size_t stride, size_t at,
+                                              size_t n, size_t lane,
+                                              size_t rows) {
+  Pt<C> acc = pt_identity<C>();
+#pragma unroll 1
+  for (size_t r = 0; r < rows; r++) {
+    const size_t pos = lane * rows + r;
+    acc = pt_add(acc, pos < n ? load_point<C>(p, stride, at + pos)
+                              : pt_identity<C>());
+  }
+  return acc;
+}
+
+// One node of the pairwise tree that gives element 0 of group_ops.
+// tree_reduce's Hillis-Steele suffix fold: at level l (h = 2^l) node j, a
+// multiple of 2h, is node j plus node j + h of level l - 1, or plus the
+// identity where j + h >= n.
+template <class C>
+__device__ __forceinline__ Pt<C> tree_node(const PointPtrs& src,
+                                           size_t stride, size_t at,
+                                           size_t n, size_t j, size_t h) {
+  const Pt<C> a = load_point<C>(src, stride, at + j);
+  const Pt<C> b = j + h < n ? load_point<C>(src, stride, at + j + h)
+                            : pt_identity<C>();
+  return pt_add(a, b);
+}
+
+// One element of a Hillis-Steele inclusive prefix level (msm._hs_prefix):
+// dst[j] = src[j] + (src[j - d] where j >= d, else the identity).
+template <class C>
+__device__ __forceinline__ void prefix_step(const PointPtrs& src,
+                                            const PointPtrs& dst,
+                                            size_t stride, size_t at,
+                                            size_t j, size_t d) {
+  const Pt<C> a = load_point<C>(src, stride, at + j);
+  const Pt<C> b = j >= d ? load_point<C>(src, stride, at + j - d)
+                         : pt_identity<C>();
+  store_point(pt_add(a, b), dst, stride, at + j);
+}
+
+// The items of one level that a thread takes: first, first + step, ...
+// below end.
+struct ItemRange {
+  size_t first, step, end;
+};
+
+__device__ __forceinline__ int ceil_log2(size_t n) {
+  int l = 0;
+  while (((size_t)1 << l) < n) l++;
+  return l;
+}
+
+// group_ops.tree_reduce over each row of the [8, batch, n] batch ``in``
+// as the pairwise tree of tree_node: level 0 reads ``in``, the others
+// work in place in ``scratch`` (shaped as ``in``), the last writes each
+// row's root to ``out`` [8, batch].  ``sched.range(rows, per_row)`` gives
+// the calling thread its items of a level, ``sched.barrier()`` separates
+// the levels.  A level never writes what another thread of it reads: node
+// j reads j and j + h and writes j, all multiples of 2h but j + h.
+template <class C, class Sched>
+__device__ __forceinline__ void tree_sum_rows(const PointPtrs& in,
+                                              const PointPtrs& scratch,
+                                              const PointPtrs& out,
+                                              size_t batch, size_t n,
+                                              Sched& sched) {
+  const size_t stride = batch * n;
+  const int levels = ceil_log2(n);
+  if (levels == 0) {
+    const ItemRange it = sched.range(batch, 1);
+    for (size_t i = it.first; i < it.end; i += it.step)
+      store_point(load_point<C>(in, stride, i * n), out, batch, i);
+    return;
+  }
+#pragma unroll 1
+  for (int l = 0; l < levels; l++) {
+    const size_t h = (size_t)1 << l;
+    const size_t nodes = (n + 2 * h - 1) / (2 * h);
+    const bool last = l + 1 == levels;           // one node per row
+    const PointPtrs& src = l == 0 ? in : scratch;
+    const ItemRange it = sched.range(batch, nodes);
+#pragma unroll 1
+    for (size_t i = it.first; i < it.end; i += it.step) {
+      const size_t b = i / nodes, j = 2 * h * (i - b * nodes);
+      const Pt<C> node = tree_node<C>(src, stride, b * n, n, j, h);
+      if (last) store_point(node, out, batch, b);
+      else store_point(node, scratch, stride, b * n + j);
+    }
+    if (!last) sched.barrier();
+  }
+}
+
+// msm._hs_prefix over each row of the [8, batch, n] batch ``in``: level l
+// writes ``out`` where levels - 1 - l is even, else ``scratch``, so that a
+// level never reads what it writes and the last level writes ``out``.
+// ``sched`` as for tree_sum_rows.
+template <class C, class Sched>
+__device__ __forceinline__ void prefix_sum_rows(const PointPtrs& in,
+                                                const PointPtrs& scratch,
+                                                const PointPtrs& out,
+                                                size_t batch, size_t n,
+                                                Sched& sched) {
+  const size_t stride = batch * n;
+  const int levels = ceil_log2(n);
+  const ItemRange it = sched.range(batch, n);
+  if (levels == 0) {
+    for (size_t i = it.first; i < it.end; i += it.step)
+      store_point(load_point<C>(in, stride, i), out, stride, i);
+    return;
+  }
+#pragma unroll 1
+  for (int l = 0; l < levels; l++) {
+    const PointPtrs& dst = ((levels - 1 - l) & 1) ? scratch : out;
+    const PointPtrs& src = l == 0 ? in : (((levels - l) & 1) ? scratch : out);
+#pragma unroll 1
+    for (size_t i = it.first; i < it.end; i += it.step) {
+      const size_t b = i / n;
+      prefix_step<C>(src, dst, stride, b * n, i - b * n, (size_t)1 << l);
+    }
+    if (l + 1 < levels) sched.barrier();
+  }
+}
+
+// msm._combine_windows for one accumulator: from the identity, most
+// significant window first, acc = [2^c] acc + W_j over the ``num_win``
+// window results at at, at + 1, ...
+template <class C>
+__device__ __forceinline__ Pt<C> combine_windows(const PointPtrs& wins,
+                                                 size_t stride, size_t at,
+                                                 int num_win, int c) {
+  Pt<C> acc = pt_identity<C>();
+#pragma unroll 1
+  for (int j = num_win - 1; j >= 0; j--) {
+#pragma unroll 1
+    for (int k = 0; k < c; k++) acc = pt_double(acc);
+    acc = pt_add(acc, load_point<C>(wins, stride, at + j));
+  }
+  return acc;
+}

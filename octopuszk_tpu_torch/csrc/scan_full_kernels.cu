@@ -30,33 +30,6 @@ namespace {
 
 constexpr int kThreads = 128;
 
-// one pointer per base-field component: G1 (X, Y, Z), G2 (X.c0, X.c1, Y.c0,
-// Y.c1, Z.c0, Z.c1)
-struct CompPtrs {
-  uint32_t* c[6];
-};
-
-__device__ __forceinline__ void load_coord(G1Coord& c, const CompPtrs& p,
-                                           int ci, size_t n, size_t i) {
-  c = fp_load<FqMod>(p.c[ci], n, i);
-}
-__device__ __forceinline__ void load_coord(G2Coord& c, const CompPtrs& p,
-                                           int ci, size_t n, size_t i) {
-  c.c0 = fp_load<FqMod>(p.c[2 * ci], n, i);
-  c.c1 = fp_load<FqMod>(p.c[2 * ci + 1], n, i);
-}
-__device__ __forceinline__ void store_coord(const G1Coord& c,
-                                            const CompPtrs& p, int ci,
-                                            size_t n, size_t i) {
-  fp_store<FqMod>(p.c[ci], n, i, c);
-}
-__device__ __forceinline__ void store_coord(const G2Coord& c,
-                                            const CompPtrs& p, int ci,
-                                            size_t n, size_t i) {
-  fp_store<FqMod>(p.c[2 * ci], n, i, c.c0);
-  fp_store<FqMod>(p.c[2 * ci + 1], n, i, c.c1);
-}
-
 // One row's full add, kept out of line: with the formula inlined into the
 // row loop, nvcc 12.9 (cicc at -O3) crashed with a segmentation fault on
 // this file, as it did on scan_kernels.cu's mixed add while field.cuh's
@@ -75,9 +48,9 @@ __device__ __noinline__ void full_step(Pt<C>& carry, const Pt<C>& q) {
 // int32[8, batch, rows, lanes].
 template <class C>
 __global__ void __launch_bounds__(kThreads)
-scan_full_kernel(CompPtrs base, size_t n, const int32_t* __restrict__ idx,
+scan_full_kernel(PointPtrs base, size_t n, const int32_t* __restrict__ idx,
                  long long sb, long long sr, long long sl, int batch,
-                 int rows, int lanes, CompPtrs out) {
+                 int rows, int lanes, PointPtrs out) {
   const size_t t = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= (size_t)batch * lanes) return;
   const size_t b = t / lanes;
@@ -100,13 +73,6 @@ scan_full_kernel(CompPtrs base, size_t n, const int32_t* __restrict__ idx,
     store_coord(carry.y, out, 1, stride, off);
     store_coord(carry.z, out, 2, stride, off);
   }
-}
-
-CompPtrs make_ptrs(const unsigned long long* addrs, int count) {
-  CompPtrs p;
-  for (int k = 0; k < 6; k++)
-    p.c[k] = k < count ? (uint32_t*)(uintptr_t)addrs[k] : nullptr;
-  return p;
 }
 
 }  // namespace

@@ -303,14 +303,12 @@ def _cat_coord(a, b):
 
 def tree_reduce(ops, p, axis_size: int):
     """Sum a batch of points along the last batch axis -> one point per
-    leading batch index.  Hillis-Steele suffix folding: level l adds
-    element j + 2^l into element j."""
-    n = axis_size
-    d = 1
-    while d < n:
-        p = add(ops, p, _shift_points(ops, p, d, toward_front=True))
-        d *= 2
-    return _index_last(p, 0)
+    leading batch index: element 0 of the Hillis-Steele suffix fold (level
+    l adds element j + 2^l into element j), one call of ops/kernels.py
+    tree_sum."""
+    from octopuszk_tpu_torch.ops import kernels
+    assert leaf(p).shape[-1] == axis_size, (leaf(p).shape, axis_size)
+    return kernels.tree_sum(ops.group_name, p)
 
 
 def _index_last(p, i):

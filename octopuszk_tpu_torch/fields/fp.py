@@ -248,15 +248,11 @@ def select(mask, a, b):
 # ---------------------------------------------------------------------------
 
 def pow_const(spec: FieldSpec, a, e: int):
-    """a**e for a host-known exponent (square-and-multiply, MSB first)."""
-    if e == 0:
-        return _const_like(spec.one_mont_words, a)
-    acc = a
-    for bit in bin(e)[3:]:
-        acc = mont_sqr(spec, acc)
-        if bit == "1":
-            acc = mont_mul(spec, acc, a)
-    return acc
+    """a**e for a host-known exponent (square-and-multiply, MSB first): one
+    call of ops/kernels.py mont_pow, the whole chain in one launch on the
+    card."""
+    from octopuszk_tpu_torch.ops import kernels
+    return kernels.mont_pow(spec, a, e)
 
 
 def inv(spec: FieldSpec, a):
@@ -291,39 +287,20 @@ def batch_inv(spec: FieldSpec, a):
     return mont_mul(spec, out, inv_total)
 
 
-def batch_inv_rows(spec: FieldSpec, a, lanes: int = 4096):
+def batch_inv_rows(spec: FieldSpec, a, lanes: int | None = None):
     """Elementwise inverse of a flat [8, n] batch in O(n) multiplies.
 
     Two-level Montgomery trick: lane-parallel serial prefix products down
     ``rows = n/lanes`` steps, one vectorized Fermat inversion of the lane
     totals, then a backward sweep emitting inverses.  Zero inputs map to
     zero (the identity-safe convention the affine conversion relies on).
+    One call of ops/kernels.py batch_inv_rows (one launch on the card),
+    which groups the work into its own ``INV_LANES`` lanes.  ``lanes`` is
+    the reference's argument and is not used: the inverse is unique, so
+    the lane count does not change the words.
     """
-    n = a.shape[-1]
-    lanes = min(lanes, n)
-    rows = -(-n // lanes)
-    m = rows * lanes
-    zmask = is_zero(a)
-    one = _const_like(spec.one_mont_words, a)
-    a_safe = torch.where(zmask, one, a)
-    if m != n:
-        a_safe = torch.cat([a_safe, constant(spec.one_mont_words, (m - n,),
-                                             a.device)], dim=-1)
-    # lane l owns positions [l*rows, (l+1)*rows)
-    xr = a_safe.reshape(W, lanes, rows).permute(2, 0, 1).contiguous()
-
-    carry = constant(spec.one_mont_words, (lanes,), a.device)
-    excl = []
-    for r in range(rows):                 # exclusive prefix products
-        excl.append(carry)
-        carry = mont_mul(spec, carry, xr[r])
-    carry = inv(spec, carry)              # one Fermat pass over [8, lanes]
-    invs = [None] * rows
-    for r in range(rows - 1, -1, -1):
-        invs[r] = mont_mul(spec, carry, excl[r])
-        carry = mont_mul(spec, carry, xr[r])
-    flat = torch.stack(invs, dim=-1).reshape(W, m)[:, :n]
-    return torch.where(zmask, torch.zeros_like(a), flat)
+    from octopuszk_tpu_torch.ops import kernels
+    return kernels.batch_inv_rows(spec, a)
 
 
 # ---------------------------------------------------------------------------

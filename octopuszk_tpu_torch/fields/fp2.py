@@ -84,7 +84,7 @@ def inv(spec: FieldSpec, a):
             fp.neg(spec, fp.mont_mul(spec, a[1], d)))
 
 
-def batch_inv_rows(spec: FieldSpec, a, lanes: int = 4096):
+def batch_inv_rows(spec: FieldSpec, a, lanes: int | None = None):
     """Elementwise Fp2 inverse of a flat batch in O(n) base multiplies
     (norm trick over fp.batch_inv_rows).  inv(0) = 0."""
     d = fp.batch_inv_rows(spec, _norm(spec, a), lanes)

@@ -2,11 +2,14 @@
 
 Nine kernels (sources under ``csrc/``) replace the Pallas kernels of the
 same names in ``octopuszk_tpu/ops/pallas_ops.py`` and, for ``row_gather``,
-``_pallas_gather`` in ``scripts/gather_experiment.py``:
+``_pallas_gather`` in ``scripts/gather_experiment.py``; seven more run, in
+one launch each, the chains of ``mont_mul`` and ``add_points`` launches
+that the main path made (the reference runs those loops inside one
+compiled program):
 
-=================================  ====================
-wrapper                            source
-=================================  ====================
+=================================  ====================  ==============
+wrapper                            source                chain of
+=================================  ====================  ==============
 ``butterfly``                      field_kernels.cu
 ``mont_mul``                       field_kernels.cu
 ``mul_sub``                        field_kernels.cu
@@ -16,7 +19,14 @@ wrapper                            source
 ``scan_accumulate_mixed_total``    scan_kernels.cu
 ``scan_accumulate``                scan_full_kernels.cu
 ``row_gather``                     gather_kernels.cu
-=================================  ====================
+``mont_pow``                       field_kernels.cu      ``mont_mul``
+``batch_inv_rows``                 field_kernels.cu      ``mont_mul``
+``window_table``                   table_kernels.cu      ``add_points``
+``combine_windows``                table_kernels.cu      ``add_points``
+``lane_row_sums``                  bucket_kernels.cu     ``add_points``
+``tree_sum``                       bucket_kernels.cu     ``add_points``
+``prefix_sum``                     prefix_kernels.cu     ``add_points``
+=================================  ====================  ==============
 
 Each wrapper takes word tensors (``int32[8, ...]``, see fields/fp.py; the
 row gather takes rows ``int32[R, W]``).  For
@@ -50,15 +60,17 @@ from octopuszk_tpu_torch.utils.bigint import NUM_WORDS
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parent.parent.parent / "build"
 SOURCES = ("field_kernels.cu", "ec_kernels.cu", "scan_kernels.cu",
-           "scan_full_kernels.cu", "gather_kernels.cu")
-HEADERS = ("field.cuh", "fp2.cuh", "rcb.cuh")
+           "scan_full_kernels.cu", "gather_kernels.cu", "table_kernels.cu",
+           "bucket_kernels.cu", "prefix_kernels.cu")
+HEADERS = ("field.cuh", "fp2.cuh", "rcb.cuh", "grid.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 KERNEL_NAMES = ("butterfly", "mont_mul", "mul_sub", "add_points",
                 "double_points", "scan_accumulate_mixed",
                 "scan_accumulate_mixed_total", "scan_accumulate",
-                "row_gather")
+                "row_gather", "mont_pow", "batch_inv_rows", "window_table",
+                "combine_windows", "lane_row_sums", "tree_sum", "prefix_sum")
 LAUNCHES = dict.fromkeys(KERNEL_NAMES, 0)
 
 _FIELD_IDS = {FR.name: 0, FQ.name: 1}
@@ -175,10 +187,22 @@ def lib():
         cdll.oz_scan_full.argtypes = [ci, addrs, ll, vp, ll, ll, ll, ci, ci,
                                       ci, addrs, vp]
         cdll.oz_row_gather.argtypes = [vp, ll, vp, ll, ci, vp, vp]
+        words = ctypes.POINTER(ctypes.c_uint)
+        cdll.oz_mont_pow.argtypes = [ci, vp, vp, ll, words, ci, vp]
+        cdll.oz_batch_inv_rows.argtypes = [ci, vp, vp, ll, ll, words, ci, vp]
+        cdll.oz_window_table.argtypes = [ci, addrs, addrs, ll, ci, ci, addrs,
+                                         vp]
+        cdll.oz_combine_windows.argtypes = [ci, addrs, ll, ci, ci, addrs, vp]
+        cdll.oz_lane_row_sums.argtypes = [ci, addrs, ll, ll, ll, addrs, vp]
+        cdll.oz_tree_sum.argtypes = [ci, addrs, addrs, ll, ll, addrs, vp, vp]
+        cdll.oz_prefix_sum.argtypes = [ci, addrs, addrs, ll, ll, addrs, vp, vp]
         for fn in (cdll.oz_butterfly, cdll.oz_mont_mul, cdll.oz_mul_sub,
                    cdll.oz_add_points, cdll.oz_double_points,
                    cdll.oz_scan_mixed, cdll.oz_scan_full,
-                   cdll.oz_row_gather):
+                   cdll.oz_row_gather, cdll.oz_mont_pow,
+                   cdll.oz_batch_inv_rows, cdll.oz_window_table,
+                   cdll.oz_combine_windows, cdll.oz_lane_row_sums,
+                   cdll.oz_tree_sum, cdll.oz_prefix_sum):
             fn.restype = ci
         _lib = cdll
     return _lib
@@ -306,6 +330,111 @@ def butterfly(spec: FieldSpec, a, b, w, dif: bool):
 
 
 # ---------------------------------------------------------------------------
+# (b)'s chains: mont_pow, batch_inv_rows
+# ---------------------------------------------------------------------------
+
+# lanes of the batch inversion kernel: each lane is one thread with one
+# Fermat chain (PERF.md has the lane counts measured)
+INV_LANES = 1 << 15
+
+
+def _exponent(e: int):
+    """A host exponent 0 <= e < 2^256 as eight C words and its top set bit
+    (-1 for 0)."""
+    if not isinstance(e, int) or not 0 <= e < 1 << 256:
+        raise ValueError(f"exponent must be an int in [0, 2^256), got {e!r}")
+    words = (ctypes.c_uint * NUM_WORDS)(
+        *[(e >> (32 * k)) & 0xFFFFFFFF for k in range(NUM_WORDS)])
+    return words, e.bit_length() - 1
+
+
+def mont_pow_plain(spec: FieldSpec, a, e: int):
+    """a^e by square-and-multiply, most significant bit first, over the
+    plain product; a^0 is one."""
+    if e == 0:
+        return fp.constant(spec.one_mont_words, a.shape[1:], a.device)
+    acc = a
+    for bit in bin(e)[3:]:
+        acc = mont_mul_plain(spec, acc, acc)
+        if bit == "1":
+            acc = mont_mul_plain(spec, acc, a)
+    return acc
+
+
+def mont_pow(spec: FieldSpec, a, e: int):
+    """Elementwise a^e (Montgomery in and out) for a host exponent
+    0 <= e < 2^256: the whole square-and-multiply chain in one launch."""
+    words, top = _exponent(e)
+    (a,) = _field_operands(a)
+    if not a.is_cuda:
+        return mont_pow_plain(spec, a, e)
+    out = torch.empty_like(a)
+    if out.numel() == 0:
+        return out
+    rc = lib().oz_mont_pow(_field_id(spec), a.data_ptr(), out.data_ptr(),
+                           _count(a), words, top, _stream())
+    _check(rc, "mont_pow")
+    LAUNCHES["mont_pow"] += 1
+    return out
+
+
+def batch_inv_rows_plain(spec: FieldSpec, a, lanes: int = INV_LANES):
+    """Two-level Montgomery trick over a flat [8, n] batch: lane l owns
+    positions [l rows, (l+1) rows); lane-parallel exclusive prefix
+    products, one Fermat inversion of the lane totals, a backward sweep.
+    Zero maps to zero."""
+    n = a.shape[-1]
+    lanes = min(lanes, n)
+    rows = -(-n // lanes)
+    m = rows * lanes
+    zmask = fp.is_zero(a)
+    one = fp.constant(spec.one_mont_words, a.shape[1:], a.device)
+    a_safe = torch.where(zmask, one, a)
+    if m != n:
+        a_safe = torch.cat([a_safe, fp.constant(spec.one_mont_words, (m - n,),
+                                                a.device)], dim=-1)
+    xr = a_safe.reshape(NUM_WORDS, lanes, rows).permute(2, 0, 1).contiguous()
+    carry = fp.constant(spec.one_mont_words, (lanes,), a.device)
+    excl = []
+    for r in range(rows):                 # exclusive prefix products
+        excl.append(carry)
+        carry = mont_mul_plain(spec, carry, xr[r])
+    carry = mont_pow_plain(spec, carry, spec.p_minus_2)
+    invs = [None] * rows
+    for r in range(rows - 1, -1, -1):
+        invs[r] = mont_mul_plain(spec, carry, excl[r])
+        carry = mont_mul_plain(spec, carry, xr[r])
+    flat = torch.stack(invs, dim=-1).reshape(NUM_WORDS, m)[:, :n]
+    return torch.where(zmask, torch.zeros_like(a), flat)
+
+
+def batch_inv_rows(spec: FieldSpec, a):
+    """Elementwise inverse of a flat int32[8, n] batch (zero -> zero) in one
+    launch: one thread per lane runs the forward sweep, the Fermat
+    inversion of its total and the backward sweep, over ``INV_LANES``
+    lanes.  The kernel's lane l owns positions l, l + lanes, ..., the plain
+    version's a contiguous run; the inverse is unique, so the words do not
+    depend on the layout."""
+    if a.dtype != torch.int32 or a.dim() != 2 or a.shape[0] != NUM_WORDS:
+        raise TypeError(
+            f"expected a flat int32[8, n] batch, got {a.dtype}{tuple(a.shape)}")
+    if not a.is_cuda:
+        return batch_inv_rows_plain(spec, a)
+    a = a.contiguous()
+    out = torch.empty_like(a)
+    n = a.shape[1]
+    if n == 0:
+        return out
+    words, top = _exponent(spec.p_minus_2)
+    rc = lib().oz_batch_inv_rows(_field_id(spec), a.data_ptr(),
+                                 out.data_ptr(), n, min(INV_LANES, n), words,
+                                 top, _stream())
+    _check(rc, "batch_inv_rows")
+    LAUNCHES["batch_inv_rows"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
 # (d) add_points, (e) double_points
 # ---------------------------------------------------------------------------
 
@@ -401,6 +530,234 @@ def double_points(group_name: str, p, times: int = 1,
     _check(rc, "double_points")
     LAUNCHES["double_points"] += 1
     return rebuild_coords(outs, cd)
+
+
+# ---------------------------------------------------------------------------
+# (d)'s chains: window_table, combine_windows, lane_row_sums, tree_sum,
+# prefix_sum
+# ---------------------------------------------------------------------------
+
+def _points_out(comps, shape):
+    return [torch.empty(shape, dtype=torch.int32, device=comps[0].device)
+            for _ in comps]
+
+
+def _batch_rows(comps, what: str):
+    """(batch rows, last axis) of components [8, *batch, n]."""
+    shape = comps[0].shape
+    if len(shape) < 2:
+        raise TypeError(f"{what} needs a last batch axis, got {tuple(shape)}")
+    n = shape[-1]
+    batch = 1
+    for d in shape[1:-1]:
+        batch *= d
+    return batch, n
+
+
+def window_table_plain(group_name: str, base, powers, w: int, outerc: int):
+    """The masked loop: per window a row of 2^w identities; for each bit
+    b, [2^(win w + b)] G (``base`` for j = 0, ``powers[..., j - 1]``
+    after) is added to every entry and kept where bit b of the entry's
+    digit is set."""
+    from octopuszk_tpu_torch.curves import group_ops
+    ops = plain_ops(group_name)
+    B = 1 << w
+    dev = group_ops.leaf(base).device
+    iota = torch.arange(B, device=dev)
+    rows = []
+    for win in range(outerc):
+        row = group_ops.infinity(ops, (B,), dev)
+        for b in range(w):
+            j = win * w + b
+            has_bit = ((iota >> b) & 1) == 1
+            g_b = group_ops._map_coords(
+                base, lambda c: c.reshape(NUM_WORDS, 1)) if j == 0 else \
+                group_ops._map_coords(powers, lambda c: c[..., j - 1:j])
+            row = group_ops.select_point(
+                ops, has_bit, add_points_plain(group_name, row, g_b), row)
+        rows.append(group_ops.flatten_coords(row))
+    return group_ops.rebuild_coords(
+        [torch.stack(cs, dim=1) for cs in zip(*rows)], ops.coord_dim)
+
+
+def window_table(group_name: str, base, powers, w: int, outerc: int):
+    """Fixed-base window table T[win][d] = [d 2^(w win)] G, coordinates
+    [8, outerc, 2^w], in one launch: one thread per entry adds, from the
+    identity, [2^(win w + b)] G for each set bit b of d.  ``base``: the
+    point G (batch-less [8] or [8, 1]); ``powers``: [8, k] with point
+    j - 1 = [2^j] G, k >= outerc w - 1 (``double_points(..., every_step=
+    True)``)."""
+    from octopuszk_tpu_torch.curves.group_ops import rebuild_coords
+    if not (isinstance(w, int) and isinstance(outerc, int)
+            and 1 <= w <= 24 and outerc >= 1):
+        raise ValueError(f"need 1 <= w <= 24 and outerc >= 1, got {w}, "
+                         f"{outerc}")
+    cd, (fb,) = _point_operands(group_name, base)
+    _, (fpw,) = _point_operands(group_name, powers)
+    if fb[0].numel() != NUM_WORDS:
+        raise TypeError("base must be one point")
+    if fpw[0].dim() != 2 or fpw[0].shape[1] < outerc * w - 1:
+        raise TypeError(f"powers must be int32[8, >= {outerc * w - 1}] "
+                        f"components, got {tuple(fpw[0].shape)}")
+    if fb[0].device != fpw[0].device:
+        raise ValueError("operands lie on different devices")
+    if not fb[0].is_cuda:
+        return window_table_plain(group_name, base, powers, w, outerc)
+    fb = [c.reshape(NUM_WORDS, 1) for c in fb]
+    outs = _points_out(fb, (NUM_WORDS, outerc, 1 << w))
+    rc = lib().oz_window_table(cd, _addr_array(fb), _addr_array(fpw),
+                               fpw[0].shape[1], w, outerc, _addr_array(outs),
+                               _stream())
+    _check(rc, "window_table")
+    LAUNCHES["window_table"] += 1
+    return rebuild_coords(outs, cd)
+
+
+def combine_windows_plain(group_name: str, wins, c: int):
+    """From the identity, most significant window first: acc = [2^c] acc +
+    W_j."""
+    from octopuszk_tpu_torch.curves import group_ops
+    ops = plain_ops(group_name)
+    lf = group_ops.leaf(wins)
+    acc = group_ops.infinity(ops, tuple(lf.shape[1:-1]), lf.device)
+    for j in range(lf.shape[-1] - 1, -1, -1):
+        if c:
+            acc = double_points_plain(group_name, acc, c)
+        acc = add_points_plain(group_name, acc, group_ops._map_coords(
+            wins, lambda a: a[..., j]))
+    return acc
+
+
+def combine_windows(group_name: str, wins, c: int):
+    """Pippenger's window combination in one launch: window results [8,
+    *batch, num_win] (least significant window first) -> [8, *batch];
+    one thread per accumulator doubles c times and adds per window."""
+    from octopuszk_tpu_torch.curves.group_ops import rebuild_coords
+    if not isinstance(c, int) or c < 0:
+        raise ValueError(f"c must be a non-negative int, got {c!r}")
+    cd, (comps,) = _point_operands(group_name, wins)
+    batch, num_win = _batch_rows(comps, "window results")
+    if num_win == 0:
+        raise ValueError("no window results to combine")
+    if not comps[0].is_cuda:
+        return combine_windows_plain(group_name, rebuild_coords(comps, cd), c)
+    outs = _points_out(comps, comps[0].shape[:-1])
+    if batch == 0:
+        return rebuild_coords(outs, cd)
+    rc = lib().oz_combine_windows(cd, _addr_array(comps), batch, num_win, c,
+                                  _addr_array(outs), _stream())
+    _check(rc, "combine_windows")
+    LAUNCHES["combine_windows"] += 1
+    return rebuild_coords(outs, cd)
+
+
+def lane_row_sums_plain(group_name: str, p, width: int):
+    """The identity-padded last axis as ``width`` lanes of rows = ceil(n /
+    width) positions each (lane l owns [l rows, (l+1) rows)); per lane,
+    from the identity, add the rows in order."""
+    from octopuszk_tpu_torch.curves import group_ops
+    ops = plain_ops(group_name)
+    lf = group_ops.leaf(p)
+    n = lf.shape[-1]
+    rows = -(-n // width)
+    if rows * width != n:
+        pad = group_ops.infinity(ops, tuple(lf.shape[1:-1]) +
+                                 (rows * width - n,), lf.device)
+        p = tuple(group_ops._cat_coord(c, f) for c, f in zip(p, pad))
+    p = group_ops._map_coords(
+        p, lambda c: c.reshape(c.shape[:-1] + (width, rows)))
+    acc = group_ops.infinity(ops, tuple(lf.shape[1:-1]) + (width,), lf.device)
+    for r in range(rows):
+        acc = add_points_plain(group_name, acc, group_ops._map_coords(
+            p, lambda c: c[..., r]))
+    return acc
+
+
+def lane_row_sums(group_name: str, p, width: int):
+    """The row loop of a two-level sum in one launch: points [8, *batch, n]
+    -> lane totals [8, *batch, width] (1 <= width <= n), one thread per
+    (batch row, lane) adding its rows in order from the identity."""
+    from octopuszk_tpu_torch.curves.group_ops import rebuild_coords
+    cd, (comps,) = _point_operands(group_name, p)
+    batch, n = _batch_rows(comps, "points")
+    if not isinstance(width, int) or not 1 <= width <= n:
+        raise ValueError(f"width must be in [1, {n}], got {width!r}")
+    if not comps[0].is_cuda:
+        return lane_row_sums_plain(group_name, rebuild_coords(comps, cd),
+                                   width)
+    outs = _points_out(comps, comps[0].shape[:-1] + (width,))
+    if batch == 0:
+        return rebuild_coords(outs, cd)
+    rc = lib().oz_lane_row_sums(cd, _addr_array(comps), batch, n, width,
+                                _addr_array(outs), _stream())
+    _check(rc, "lane_row_sums")
+    LAUNCHES["lane_row_sums"] += 1
+    return rebuild_coords(outs, cd)
+
+
+def _hillis_steele(group_name: str, p, toward_front: bool):
+    """Every level of a Hillis-Steele fold along the last axis: level l
+    adds to element j element j + 2^l (suffix, ``toward_front``) or
+    j - 2^l (prefix), the identity past either end."""
+    from octopuszk_tpu_torch.curves import group_ops
+    ops = plain_ops(group_name)
+    n = group_ops.leaf(p).shape[-1]
+    d = 1
+    while d < n:
+        p = add_points_plain(group_name, p, group_ops._shift_points(
+            ops, p, d, toward_front))
+        d *= 2
+    return p
+
+
+def tree_sum_plain(group_name: str, p):
+    """Element 0 of the Hillis-Steele suffix fold."""
+    from octopuszk_tpu_torch.curves import group_ops
+    return group_ops._index_last(_hillis_steele(group_name, p, True), 0)
+
+
+def prefix_sum_plain(group_name: str, p):
+    """The Hillis-Steele inclusive prefix fold."""
+    return _hillis_steele(group_name, p, False)
+
+
+def _levels_launch(group_name, p, name, out_shape):
+    from octopuszk_tpu_torch.curves.group_ops import rebuild_coords
+    cd, (comps,) = _point_operands(group_name, p)
+    batch, n = _batch_rows(comps, "points")
+    if n == 0:
+        raise ValueError(f"{name} over an empty axis")
+    if not comps[0].is_cuda:
+        plain = tree_sum_plain if name == "tree_sum" else prefix_sum_plain
+        return plain(group_name, rebuild_coords(comps, cd))
+    outs = _points_out(comps, out_shape(comps[0].shape))
+    if batch == 0:
+        return rebuild_coords(outs, cd)
+    scratch = _points_out(comps, comps[0].shape)
+    count = torch.zeros(1, dtype=torch.int32, device=comps[0].device)
+    fn = lib().oz_tree_sum if name == "tree_sum" else lib().oz_prefix_sum
+    rc = fn(cd, _addr_array(comps), _addr_array(scratch), batch, n,
+            _addr_array(outs), count.data_ptr(), _stream())
+    _check(rc, name)
+    LAUNCHES[name] += 1
+    return rebuild_coords(outs, cd)
+
+
+def tree_sum(group_name: str, p):
+    """Sum along the last axis in one launch: points [8, *batch, n] ->
+    [8, *batch], element 0 of the Hillis-Steele suffix fold of
+    group_ops.tree_reduce, computed as the pairwise tree that gives it
+    (n - 1 adds and the adds with the identity past the end); the levels
+    spread over the card and meet at a grid-wide barrier."""
+    return _levels_launch(group_name, p, "tree_sum", lambda s: s[:-1])
+
+
+def prefix_sum(group_name: str, p):
+    """Inclusive prefix sums along the last axis in one launch: the full
+    Hillis-Steele dataflow (level l adds element j - 2^l into element j,
+    the identity below 0) between two buffers, the levels meeting at a
+    grid-wide barrier."""
+    return _levels_launch(group_name, p, "prefix_sum", lambda s: s)
 
 
 # ---------------------------------------------------------------------------

@@ -122,27 +122,13 @@ def _signed_digits(scalars_raw, c: int, num_win: int):
 def _window_table(group, base_point, w: int, outerc: int):
     """Multiples table: T[win][d] = [d * 2^(w*win)] G, coords [8, outerc,
     2^w].  Per window, w bit-steps add [2^b]G_win into every table slot
-    whose digit has bit b set.  The powers [2^j]G come from one doubling
-    chain (the last of its outerc * w steps is not used)."""
-    B = 1 << w
-    dev = jac.leaf(base_point).device
-    iota = torch.arange(B, device=dev)
+    whose digit has bit b set, all in one ``window_table`` launch.  The
+    powers [2^j]G come from one doubling chain (the last of its outerc * w
+    steps is not used)."""
     powers = kernels.double_points(group.ops.group_name, base_point,
                                    times=outerc * w, every_step=True)
-    rows = []
-    for win in range(outerc):
-        row = group.infinity((B,), dev)
-        for b in range(w):
-            j = win * w + b
-            has_bit = ((iota >> b) & 1) == 1
-            g_b = (_map_coords(base_point, lambda c: c[..., None]) if j == 0
-                   else _map_coords(powers, lambda c: c[..., j - 1:j]))
-            row = group.select(has_bit, group.add(row, g_b), row)
-        rows.append(row)
-    return tuple(
-        tuple(torch.stack(cs, dim=1) for cs in zip(*coords))
-        if isinstance(coords[0], tuple) else torch.stack(coords, dim=1)
-        for coords in zip(*rows))
+    return kernels.window_table(group.ops.group_name, base_point, powers, w,
+                                outerc)
 
 
 def _choose_w(n: int) -> int:
@@ -284,12 +270,9 @@ def packed_to_points(group, packed):
 
 def _hs_prefix(group, p, n: int):
     """Inclusive prefix sums along the last axis (Hillis-Steele: level l
-    adds element j - 2^l into element j)."""
-    d = 1
-    while d < n:
-        p = group.add(p, jac._shift_points(group.ops, p, d, False))
-        d *= 2
-    return p
+    adds element j - 2^l into element j), one ``prefix_sum`` launch."""
+    assert _batch_n(p) == n, (_batch_n(p), n)
+    return kernels.prefix_sum(group.ops.group_name, p)
 
 
 def _shift_right_inf(group, p):
@@ -299,21 +282,14 @@ def _shift_right_inf(group, p):
 
 
 def _scan_sum(group, p, n: int, width: int = 2048):
-    """Sum n points along the last axis in O(n) adds: serial scan over rows
-    of ``width`` lanes, then a Hillis-Steele fold across lanes."""
+    """Sum n points along the last axis in O(n) adds: a serial scan over
+    rows of ``width`` lanes from the identity (lane l owns positions
+    [l*rows, (l+1)*rows), the identity pads the last), one
+    ``lane_row_sums`` launch, then the tree across lanes."""
+    assert _batch_n(p) == n, (_batch_n(p), n)
     width = min(width, n)
-    rows = -(-n // width)
-    m = rows * width
-    lf = jac.leaf(p)
-    if m != n:
-        pad = group.infinity(tuple(lf.shape[1:-1]) + (m - n,), lf.device)
-        p = tuple(jac._cat_coord(c, f) for c, f in zip(p, pad))
-    # lane l owns positions [l*rows, (l+1)*rows)
-    p = _map_coords(p, lambda c: c.reshape(c.shape[:-1] + (width, rows)))
-    carry = _map_coords(p, lambda c: c[..., 0])
-    for r in range(1, rows):
-        carry = group.add(carry, _map_coords(p, lambda c: c[..., r]))
-    return group.tree_reduce(carry, width)
+    totals = kernels.lane_row_sums(group.ops.group_name, p, width)
+    return group.tree_reduce(totals, width)
 
 
 def _bucket_sums(group, prefix, d_sorted, B: int, lanes: int, rows: int):
@@ -422,18 +398,9 @@ def _sorted_digits(scalars_chunk, num_win: int, c: int):
 
 
 def _combine_windows(group, window_results, c: int):
-    """MSB-first window combination: acc = [2^c] acc + W_j."""
-    lf = jac.leaf(window_results)
-    num_win = lf.shape[-1]
-    acc = None
-    for idx in range(num_win - 1, -1, -1):
-        wj = _map_coords(window_results, lambda a: a[..., idx])
-        if acc is None:
-            acc = wj
-            continue
-        acc = group.add(kernels.double_points(group.ops.group_name, acc,
-                                              times=c), wj)
-    return acc
+    """MSB-first window combination from the identity: acc = [2^c] acc +
+    W_j, one ``combine_windows`` launch."""
+    return kernels.combine_windows(group.ops.group_name, window_results, c)
 
 
 def _msm_large_packed(groups, packeds, scalars_raw, num_win: int, c: int,

@@ -99,6 +99,91 @@ extern "C" void point_op(int group, int op, uint32_t* const* p,
   if (group == 1) points<G1Coord>(op, p, q, out, n);
   else points<G2Coord>(op, p, q, out, n);
 }
+
+// --- the chains that run as one launch each, every thread's work in turn
+
+static Exponent exponent(const uint32_t* e, int top) {
+  Exponent x;
+  for (int k = 0; k < 8; k++) x.w[k] = e[k];
+  x.top = top;
+  return x;
+}
+
+template <class M>
+static void pow_all(const uint32_t* a, uint32_t* out, long n,
+                    const Exponent& e) {
+  for (long i = 0; i < n; i++)
+    fp_store<M>(out, n, i, pow_exp(fp_load<M>(a, n, i), e));
+}
+
+extern "C" void pow_op(int field, const uint32_t* a, uint32_t* out, long n,
+                       const uint32_t* e, int top) {
+  if (field == 0) pow_all<FrMod>(a, out, n, exponent(e, top));
+  else pow_all<FqMod>(a, out, n, exponent(e, top));
+}
+
+// every lane of the batch inversion, one after the other
+extern "C" void batch_inv_op(int field, const uint32_t* a, uint32_t* out,
+                             long n, long lanes, const uint32_t* pm2,
+                             int top) {
+  const Exponent e = exponent(pm2, top);
+  for (long l = 0; l < lanes; l++) {
+    if (field == 0) batch_inv_lane<FrMod>(a, out, n, lanes, l, e);
+    else batch_inv_lane<FqMod>(a, out, n, lanes, l, e);
+  }
+}
+
+static PointPtrs ptrs(uint32_t* const* a, int group) {
+  PointPtrs p;
+  for (int k = 0; k < 6; k++) p.c[k] = k < 3 * group ? a[k] : nullptr;
+  return p;
+}
+
+// one thread: every item of a level in order, no barrier needed
+struct HostSched {
+  ItemRange range(size_t rows, size_t per_row) const {
+    return {0, 1, rows * per_row};
+  }
+  void barrier() {}
+};
+
+// op: 0 window table (a = base, b = powers, n = npow, x = w, y = outerc),
+// 1 lane row sums (a = points [batch, n], x = width), 2 tree (a = points,
+// b = scratch), 3 prefix (a = points, b = scratch), 4 combine (a = window
+// results [batch, n], x = c)
+template <class C>
+static void chain(int op, int group, uint32_t* const* a, uint32_t* const* b,
+                  uint32_t* const* out, long batch, long n, int x, int y) {
+  const PointPtrs pa = ptrs(a, group), po = ptrs(out, group);
+  HostSched sched;
+  if (op == 0) {
+    const size_t entries = (size_t)y << x;
+    for (size_t t = 0; t < entries; t++)
+      store_point(window_entry<C>(pa, ptrs(b, group), n, (int)(t >> x),
+                                  (unsigned)(t & ((1u << x) - 1)), x),
+                  po, entries, t);
+  } else if (op == 1) {
+    const size_t rows = (n + x - 1) / x;
+    for (long i = 0; i < batch * x; i++)
+      store_point(lane_row_sum<C>(pa, batch * n, (i / x) * n, n, i % x, rows),
+                  po, batch * x, i);
+  } else if (op == 2) {
+    tree_sum_rows<C>(pa, ptrs(b, group), po, batch, n, sched);
+  } else if (op == 3) {
+    prefix_sum_rows<C>(pa, ptrs(b, group), po, batch, n, sched);
+  } else {
+    for (long i = 0; i < batch; i++)
+      store_point(combine_windows<C>(pa, batch * n, i * n, (int)n, x), po,
+                  batch, i);
+  }
+}
+
+extern "C" void chain_op(int op, int group, uint32_t* const* a,
+                         uint32_t* const* b, uint32_t* const* out, long batch,
+                         long n, int x, int y) {
+  if (group == 1) chain<G1Coord>(op, group, a, b, out, batch, n, x, y);
+  else chain<G2Coord>(op, group, a, b, out, batch, n, x, y);
+}
 """
 
 
@@ -195,3 +280,86 @@ def test_point_formulas(host_lib, gname):
                               ctypes.c_long(N))
             for got, ref in zip(outs, _flat(w)):
                 assert torch.equal(got, ref), (gname, op)
+
+
+def _exponent(e):
+    return (ctypes.c_uint32 * 8)(*[(e >> (32 * k)) & 0xFFFFFFFF
+                                   for k in range(8)]), e.bit_length() - 1
+
+
+@pytest.mark.parametrize("field", ["fr", "fq"])
+def test_field_chains(host_lib, field):
+    """The square-and-multiply chain (q - 2, r - 2, short exponents, 0) and
+    the batch inversion's lane sweeps (interleaved lanes, zeros among the
+    inputs, n not a multiple of the lane count) against the plain
+    versions."""
+    spec = {"fr": tspec.FR, "fq": tspec.FQ}[field]
+    a = _words(_field_values(spec.p, 4)[:37])
+    for e in (spec.p_minus_2, 0b1011001, 1, 0):
+        out = torch.empty_like(a)
+        words, top = _exponent(e)
+        host_lib.pow_op(int(field == "fq"), _ptr(a), _ptr(out),
+                        ctypes.c_long(37), words, top)
+        assert torch.equal(out, kernels.mont_pow_plain(spec, a, e)), e
+    words, top = _exponent(spec.p_minus_2)
+    for lanes in (8, 37, 1):
+        out = torch.empty_like(a)
+        host_lib.batch_inv_op(int(field == "fq"), _ptr(a), _ptr(out),
+                              ctypes.c_long(37), ctypes.c_long(lanes), words,
+                              top)
+        assert torch.equal(out, kernels.batch_inv_rows_plain(spec, a, 5)), lanes
+
+
+def _chain(host_lib, op, gname, a, b, out_shape, batch, n, x=0, y=0):
+    fa = _flat(a)
+    fb = _flat(b) if b is not None else fa
+    outs = [torch.empty(out_shape, dtype=torch.int32) for _ in fa]
+    host_lib.chain_op(op, {"G1": 1, "G2": 2}[gname], _ptrs(fa), _ptrs(fb),
+                      _ptrs(outs), ctypes.c_long(batch), ctypes.c_long(n),
+                      x, y)
+    return outs
+
+
+@pytest.mark.parametrize("gname", ["G1", "G2"])
+def test_point_chains(host_lib, gname):
+    """The window table's entries, the lane row sums, the pairwise tree
+    (with its adds of the identity at n = 13, none at n = 8, a copy at
+    n = 1), the Hillis-Steele prefix through two buffers and the window
+    combine, against the plain versions' loops."""
+    from octopuszk_tpu_torch.curves import group_ops
+    g = {"G1": bn254.G1, "G2": bn254.G2}[gname]
+    rng = random.Random(5)
+    host = [g.host.mul(g.generator_affine, rng.randrange(1, 1 << 64))
+            for _ in range(26)]
+    host[3] = None
+    pts = g.points_to_device(host, "cpu")
+    rows = group_ops._map_coords(pts, lambda c: c.reshape(8, 2, 13)
+                                 .contiguous())
+
+    w, outerc = 3, 3
+    base = g.points_to_device(host[:1], "cpu")
+    powers = kernels.double_points_plain(gname, base, outerc * w, True)
+    powers = group_ops._map_coords(powers, lambda c: c[:, 0].contiguous())
+    got = _chain(host_lib, 0, gname, base, powers, (8, outerc, 1 << w), 1,
+                 outerc * w, w, outerc)
+    want = kernels.window_table_plain(gname, base, powers, w, outerc)
+    assert all(torch.equal(x, y) for x, y in zip(got, _flat(want)))
+
+    got = _chain(host_lib, 1, gname, rows, None, (8, 2, 4), 2, 13, 4)
+    want = kernels.lane_row_sums_plain(gname, rows, 4)
+    assert all(torch.equal(x, y) for x, y in zip(got, _flat(want)))
+
+    for n in (13, 8, 1):
+        sub = group_ops._map_coords(rows, lambda c: c[..., :n].contiguous())
+        scratch = group_ops._map_coords(sub, torch.empty_like)
+        got = _chain(host_lib, 2, gname, sub, scratch, (8, 2), 2, n)
+        want = kernels.tree_sum_plain(gname, sub)
+        assert all(torch.equal(x, y) for x, y in zip(got, _flat(want))), n
+        got = _chain(host_lib, 3, gname, sub, scratch, (8, 2, n), 2, n)
+        want = kernels.prefix_sum_plain(gname, sub)
+        assert all(torch.equal(x, y) for x, y in zip(got, _flat(want))), n
+
+    wins = group_ops._map_coords(rows, lambda c: c[..., :4].contiguous())
+    got = _chain(host_lib, 4, gname, wins, None, (8, 2), 2, 4, 5)
+    want = kernels.combine_windows_plain(gname, wins, 5)
+    assert all(torch.equal(x, y) for x, y in zip(got, _flat(want)))

@@ -67,6 +67,7 @@ def test_every_module_and_source_is_covered():
         assert mod in MODULES
     names = {p.name for p in SOURCES}
     assert {"scan_full_kernels.cu", "scan_kernels.cu", "gather_kernels.cu",
+            "table_kernels.cu", "bucket_kernels.cu", "prefix_kernels.cu",
             "chip_smoke.py"} <= names
 
 
