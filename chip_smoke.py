@@ -38,27 +38,33 @@ card's name and power limit as
 is no CUDA device, if the build fails, if any comparison differs or any
 phase raises.
 
-After the three paths one more packed prove runs under ``torch.profiler``
-(``profile`` line: the warm prove's wall time, device busy time and idle
-share).  The ``kernels`` line holds, for each kernel and variant, its time
-beside its bound, its plain version's and, where one exists, a library
-call's, and its launches per path; a ``launches`` line holds the counts per path
-and kernel; the ``env`` line holds ptxas's registers and spills for every
-kernel.  ``double_points`` has one record per doubling chain of the main
+After the three paths two more packed proves run, one on the host clock
+and one under ``torch.profiler`` (``profile`` line: the warm prove's wall
+time, stages and launches per wrapper, device busy time and idle share).
+Every prove's stages split the witness map into its matvecs, transforms
+and H (``witness-map:*``).  The ``kernels`` line holds, for each kernel
+and variant, its time beside its bound, its plain version's and, where
+one exists, a library call's, and its launches per path; a ``launches``
+line holds the counts per path and kernel; the ``env`` line holds ptxas's
+registers and spills for every kernel.  ``double_points`` has one record per doubling chain of the main
 path (the Abel sum's, the window table's; the window combine's is now
 inside ``combine_windows``), timed per chain: one launch each.  The
 chains of ``mont_mul`` and ``add_points`` that run as one launch each
 (``mont_pow``, ``batch_inv_rows``, ``window_table``, ``lane_row_sums``,
 ``tree_sum``, ``prefix_sum``, ``combine_windows``) have records at the
-main path's shapes.
+main path's shapes, and so has ``ntt_block``, which runs every stage of a
+sub-transform in one launch: the two 4-step passes of the witness map's
+coset NTT and coset iNTT, and one 2^12 transform.  ``butterfly``, the
+reference's per-stage kernel, keeps its record though no path launches it.
 
-``--log2 N`` cuts the constraint count to 2^N (never below 2^18 on the
-card: below that the 4-step NTT is not run).
+``--log2 N`` cuts the constraint count to 2^N (never below 2^13 on the
+card: up to 2^12 the 4-step NTT is not run).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import csv
 import dataclasses
 import json
@@ -76,7 +82,7 @@ from octopuszk_tpu_torch.curves import bn254, host_curve
 from octopuszk_tpu_torch.fields.spec import FQ, FR
 from octopuszk_tpu_torch.models.groth16 import (
     prover, serialize, setup, verifier)
-from octopuszk_tpu_torch.ops import kernels, msm
+from octopuszk_tpu_torch.ops import kernels, msm, ntt
 from octopuszk_tpu_torch.relations import construct
 
 QUERIES = ("query_a", "query_b_g1", "query_b_g2", "query_h", "delta_abc_g1")
@@ -104,6 +110,8 @@ REPLACES = {
     "lane_row_sums": "octopuszk_tpu/ops/pallas_ops.py:181",
     "tree_sum": "octopuszk_tpu/ops/pallas_ops.py:181",
     "prefix_sum": "octopuszk_tpu/ops/pallas_ops.py:181",
+    # (a)'s stage-per-launch chain as one launch per sub-transform
+    "ntt_block": "octopuszk_tpu/ops/pallas_ops.py:486",
 }
 SOURCE = {
     "butterfly": "octopuszk_tpu_torch/csrc/field_kernels.cu",
@@ -113,7 +121,7 @@ SOURCE = {
     "double_points": "octopuszk_tpu_torch/csrc/ec_kernels.cu",
     "scan_accumulate_mixed": "octopuszk_tpu_torch/csrc/scan_kernels.cu",
     "scan_accumulate_mixed_total": "octopuszk_tpu_torch/csrc/scan_kernels.cu",
-    "scan_accumulate": "octopuszk_tpu_torch/csrc/scan_full_kernels.cu",
+    "scan_accumulate": "octopuszk_tpu_torch/csrc/scan_kernels.cu",
     "row_gather": "octopuszk_tpu_torch/csrc/gather_kernels.cu",
     "mont_pow": "octopuszk_tpu_torch/csrc/field_kernels.cu",
     "batch_inv_rows": "octopuszk_tpu_torch/csrc/field_kernels.cu",
@@ -122,13 +130,16 @@ SOURCE = {
     "lane_row_sums": "octopuszk_tpu_torch/csrc/bucket_kernels.cu",
     "tree_sum": "octopuszk_tpu_torch/csrc/bucket_kernels.cu",
     "prefix_sum": "octopuszk_tpu_torch/csrc/prefix_kernels.cu",
+    "ntt_block": "octopuszk_tpu_torch/csrc/ntt_kernels.cu",
 }
 # the kernels each path is built on: each must launch at least once there
 _BUCKET_KERNELS = {"add_points", "prefix_sum", "lane_row_sums", "tree_sum",
                    "combine_windows"}
-_PROVE_KERNELS = {"butterfly", "mont_mul", "mul_sub", "double_points",
+_PROVE_KERNELS = {"ntt_block", "mont_mul", "mul_sub", "double_points",
                   "mont_pow"} | _BUCKET_KERNELS
-_GROTH16_KERNELS = set(REPLACES) - {"scan_accumulate", "row_gather"}
+# butterfly: the reference's per-stage kernel, on no path since ntt_block
+_GROTH16_KERNELS = set(REPLACES) - {"scan_accumulate", "row_gather",
+                                    "butterfly"}
 _FIXED_KERNELS = {"double_points", "window_table", "mont_mul",
                   "batch_inv_rows", "scan_accumulate_mixed_total"}
 REQUIRED = {
@@ -141,17 +152,17 @@ REQUIRED = {
 # kernels its path reaches; all at the main path's size but those in
 # PROFILER_CUTS.
 PROFILER_APPS = [
-    (["fft"], {"butterfly", "mont_mul"}),
+    (["fft"], {"ntt_block"}),
     (["lagrange"], {"mont_mul", "mont_pow"}),
     (["fmsm-g1"], _FIXED_KERNELS),
     (["fmsm-g2"], _FIXED_KERNELS),
     (["vmsm-g1"], _FIXED_KERNELS | _BUCKET_KERNELS | {"scan_accumulate_mixed"}),
     (["vmsm-g2"], _FIXED_KERNELS | _BUCKET_KERNELS | {"scan_accumulate_mixed"}),
     (["relation"], {"mont_mul"}),
-    (["witness"], {"butterfly", "mont_mul", "mul_sub"}),
+    (["witness"], {"ntt_block", "mont_mul", "mul_sub"}),
     (["zksnark"], _GROTH16_KERNELS),
     (["zksnark", "--inputs=1023"], _GROTH16_KERNELS),
-    (["bace"], {"butterfly", "mont_mul"}),
+    (["bace"], {"ntt_block", "mont_mul"}),
     (["matmul"], _GROTH16_KERNELS),
     (["regression"], _GROTH16_KERNELS),
     (["gaussian"], _GROTH16_KERNELS),
@@ -290,17 +301,62 @@ def check_kernels(dev, log2: int, int32_rate: float, reps: int):
             raise SystemExit(f"kernel {name} ({variant}) differs from its "
                              f"plain version: {records[-1]}")
 
+    def ntt_record(variant, x, tw, dif, pre, post):
+        """An ntt_block record: products (L/2) log2 L per transform and
+        one per pre / post element; bytes: x, the output, the tables once
+        (a broadcast table counted as stored)."""
+        L = x.shape[1]
+        count = x.numel() // (8 * L)
+        tables = [t for t in (pre, post) if t is not None]
+        prods = count * ((L // 2) * (L.bit_length() - 1) + L * len(tables))
+        moved = ELEM_BYTES * (2 * x.numel() // 8 + tw.numel() // 8 + sum(
+            t.untyped_storage().nbytes() // 4 // 8 for t in tables))
+        record("ntt_block", variant, list(x.shape),
+               lambda: kernels.ntt_block(FR, x, tw, dif, pre, post),
+               lambda: kernels.ntt_block_plain(FR, x, tw, dif, pre, post),
+               moved, MADS_PER_MONT_MUL * prods)
+
     n = 1 << log2
-    # (a) butterfly: one 4-step stage pairs half of the 2^log2 elements
-    # (the main path transforms over Fr; the Fq instance is built as well)
+    # (a) butterfly: one stage over the 2^log2 elements pairs half of them
+    # (the reference's per-stage kernel; no path launches it since
+    # ntt_block; the Fq instance is built as well)
     half = n // 2
     for spec, tag in ((FR, "Fr"), (FQ, "Fq")):
         for dif in (True, False):
             a, b, w = (rand_field(gen, (half,), dev) for _ in range(3))
-            record("butterfly", f"{tag} {'DIF' if dif else 'DIT'}", [8, half],
+            record("butterfly", f"{tag} {'DIF' if dif else 'DIT'} (off the "
+                   "path since ntt_block)", [8, half],
                    lambda: kernels.butterfly(spec, a, b, w, dif),
                    lambda: kernels.butterfly_plain(spec, a, b, w, dif),
                    5 * ELEM_BYTES * half, MADS_PER_MONT_MUL * half)
+    # (a)'s chain as ntt_block: the two 4-step passes of the witness map's
+    # coset NTT (columns with the coset powers as pre and the twiddles as
+    # post; rows through the transposed view) and of its coset iNTT
+    # (columns with the twiddles; rows with g^-i / n as post), at the
+    # prover's domain of 2^log2 over Fr, the tables as ops/ntt.py caches
+    # them; and one transform of 2^12 (B = 1), the longest one launch
+    # takes.  Bound: one product per butterfly and per table element.
+    R, C = 1 << ((log2 + 1) // 2), 1 << (log2 // 2)
+    for inverse in (False, True):
+        what = "coset iNTT" if inverse else "coset NTT"
+        tw4 = ntt._four_step_twiddles(FR, R, C, inverse, dev)[..., None]
+        coset = ntt._coset_table(FR, n, inverse, dev)
+        x = rand_field(gen, (R, C, 1), dev)
+        pre = None if inverse else coset.reshape(8, R, C, 1)
+        ntt_record(f"Fr 2^{log2} {what}, columns", x,
+                   ntt._stage_twiddles(FR, R, inverse, dev), not inverse,
+                   pre, tw4)
+        post = coset.reshape(8, C, R, 1) if inverse else None
+        ntt_record(f"Fr 2^{log2} {what}, rows (transposed view)",
+                   rand_field(gen, (R, C, 1), dev).permute(0, 2, 1, 3),
+                   ntt._stage_twiddles(FR, C, inverse, dev), not inverse,
+                   None, post)
+        del tw4, coset, x, pre, post
+    L1 = kernels.NTT_BLOCK_MAX
+    ntt_record(f"Fr 2^{L1.bit_length() - 1} iNTT, one launch (B = 1)",
+               rand_field(gen, (L1, 1), dev),
+               ntt._stage_twiddles(FR, L1, True, dev), False, None,
+               ntt._scale(FR, L1, dev)[:, :, None])
     # (b) mont_mul: Fr at the NTT size, Fq at the packed-query size
     for spec, tag, cnt in ((FR, "Fr", n), (FQ, "Fq", 2 * n)):
         a, b = rand_field(gen, (cnt,), dev), rand_field(gen, (cnt,), dev)
@@ -772,16 +828,21 @@ def run_profiler(dev, log2: int):
 
 
 def profile_prove(dev, crs, primary, aux):
-    """Two more proves: one timed on the host clock, one
-    under torch.profiler for the device's busy time (the sum over device
-    kernels; tracing slows the host, so the idle share is reckoned against
-    the untraced wall time) and the kernels that take most of it."""
+    """Two more proves: one timed on the host clock, with its stages and
+    its launches per wrapper, one under torch.profiler for the device's
+    busy time (the sum over device kernels; tracing slows the host, so the
+    idle share is reckoned against the untraced wall time) and the kernels
+    that take most of it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize(dev)
+    kernels.reset_launch_counts()
+    stages = {}
     t0 = time.perf_counter()
-    prover.prove(crs.proving_key, primary, aux, seed=7)
+    prover.prove(crs.proving_key, primary, aux, seed=7, stage_seconds=stages)
     torch.cuda.synchronize(dev)
     wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         prover.prove(crs.proving_key, primary, aux, seed=7)
@@ -801,6 +862,7 @@ def profile_prove(dev, crs, primary, aux):
         "wall_ms": wall_ms, "traced_wall_ms": traced_wall_ms,
         "device_busy_ms": busy_ms,
         "device_idle_share": 1 - busy_ms / wall_ms,
+        "prove_seconds": stages, "launches": launches,
         "device_kernels": len(events),
         "kernel_launches": sum(e.count for e in events),
         "top_by_device_time": [
@@ -872,8 +934,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device", file=sys.stderr)
         return 1
-    if args.log2 < 18:
-        print("--log2 below 18 does not run the 4-step NTT", file=sys.stderr)
+    if 1 << args.log2 <= ntt.BLOCK_MAX:
+        print(f"--log2 {args.log2} does not run the 4-step NTT (it starts "
+              f"above 2^{ntt.BLOCK_MAX.bit_length() - 1})", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
@@ -889,22 +952,36 @@ def main() -> int:
         "build_seconds": kernels.build_seconds,
         "ptxas": ptxas_summary()}})
 
-    records = check_kernels(dev, args.log2, int32_rate, reps=5)
-    torch.cuda.empty_cache()
-    counts, proving_inputs = run_paths(dev, args.log2)
-    profile_prove(dev, *proving_inputs)
-    del proving_inputs
-    run_oracle(dev, 1 << 12)
-    counts["gather"] = run_gather(dev, args.log2)
-    check_gather_bounds()
-    counts.update(run_profiler(dev, args.log2))
+    phases = {"build": time.perf_counter() - t_start}
+
+    @contextlib.contextmanager
+    def phase(name):
+        t0 = time.perf_counter()
+        yield
+        phases[name] = time.perf_counter() - t0
+
+    with phase("kernels"):
+        records = check_kernels(dev, args.log2, int32_rate, reps=5)
+        torch.cuda.empty_cache()
+    with phase("paths"):
+        counts, proving_inputs = run_paths(dev, args.log2)
+    with phase("profile and oracle"):
+        profile_prove(dev, *proving_inputs)
+        del proving_inputs
+        run_oracle(dev, 1 << 12)
+    with phase("gather"):
+        counts["gather"] = run_gather(dev, args.log2)
+        check_gather_bounds()
+    with phase("profiler apps"):
+        counts.update(run_profiler(dev, args.log2))
     for r in records:
         r["launches_per_path"] = {p: c[r["name"]] for p, c in counts.items()}
         r["launches"] = sum(r["launches_per_path"].values())
     emit({"launches": counts})
     emit({"kernels": records})
     print(card, flush=True)
-    emit({"total_seconds": time.perf_counter() - t_start})
+    emit({"total_seconds": time.perf_counter() - t_start,
+          "phase_seconds": phases})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -4,7 +4,7 @@ Port of ``octopuszk_tpu/models/bace/prover.py``: interpolate each input
 column over the K instances (a size-K inverse NTT per column), extend it to
 the proof domain D = nextpow2(total degree * K), evaluate the circuit at all
 D points at once, and interpolate the result into the proof polynomial R(z).
-The transforms run through the ``butterfly`` kernel, the circuit's products
+The transforms run through the ``ntt_block`` kernel, the circuit's products
 through ``mont_mul``.
 """
 

@@ -42,7 +42,8 @@ def prove(pk: ProvingKey, primary, auxiliary, seed: int = 2,
     them chunk by chunk; unpacked queries must lie there.
     ``config.debug`` turns on the satisfiability and degree checks;
     ``stage_seconds`` is an optional dict that receives each stage's wall
-    time."""
+    time, and the witness map's split (``witness-map:matvecs``,
+    ``:transforms``, ``:h``, parts of ``witness-map``)."""
     if curve is None:
         from octopuszk_tpu_torch.curves.family import bn254a
         curve = bn254a()
@@ -74,7 +75,8 @@ def prove(pk: ProvingKey, primary, auxiliary, seed: int = 2,
     mark("assignment")
     if config is not None and config.debug:
         assert is_satisfied(fr, r1cs, z), "R1CS not satisfied"
-    h = qap_witness(fr, r1cs, n, z)
+    witness_split = {} if stage_seconds is not None else None
+    h = qap_witness(fr, r1cs, n, z, stage_seconds=witness_split)
     if config is not None and config.debug:
         # deg H <= n - 2, so the top coefficients must be zero
         assert not bool(h[:, n - 1:].any()), "QAP H degree too high"
@@ -83,6 +85,10 @@ def prove(pk: ProvingKey, primary, auxiliary, seed: int = 2,
     h_raw = fp.from_mont(fr, h)
     ni = r1cs.num_inputs
     mark("witness-map")
+    if stage_seconds is not None:
+        # inside witness-map: matvecs, transforms, h
+        stage_seconds.update({f"witness-map:{k}": v
+                              for k, v in witness_split.items()})
 
     if pk.delta_abc_full:
         # all m variables: zero the primary scalars instead of slicing

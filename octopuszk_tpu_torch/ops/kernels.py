@@ -2,10 +2,10 @@
 
 Nine kernels (sources under ``csrc/``) replace the Pallas kernels of the
 same names in ``octopuszk_tpu/ops/pallas_ops.py`` and, for ``row_gather``,
-``_pallas_gather`` in ``scripts/gather_experiment.py``; seven more run, in
-one launch each, the chains of ``mont_mul`` and ``add_points`` launches
-that the main path made (the reference runs those loops inside one
-compiled program):
+``_pallas_gather`` in ``scripts/gather_experiment.py``; eight more run, in
+one launch each, the chains of ``butterfly``, ``mont_mul`` and
+``add_points`` launches that the main path made (the reference runs those
+loops inside one compiled program):
 
 =================================  ====================  ==============
 wrapper                            source                chain of
@@ -17,8 +17,9 @@ wrapper                            source                chain of
 ``double_points``                  ec_kernels.cu
 ``scan_accumulate_mixed``          scan_kernels.cu
 ``scan_accumulate_mixed_total``    scan_kernels.cu
-``scan_accumulate``                scan_full_kernels.cu
+``scan_accumulate``                scan_kernels.cu
 ``row_gather``                     gather_kernels.cu
+``ntt_block``                      ntt_kernels.cu        ``butterfly``
 ``mont_pow``                       field_kernels.cu      ``mont_mul``
 ``batch_inv_rows``                 field_kernels.cu      ``mont_mul``
 ``window_table``                   table_kernels.cu      ``add_points``
@@ -44,6 +45,7 @@ library is loaded with ``ctypes``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import pathlib
@@ -51,6 +53,7 @@ import shutil
 import subprocess
 import time
 
+import numpy as np
 import torch
 
 from octopuszk_tpu_torch.fields import fp
@@ -60,9 +63,9 @@ from octopuszk_tpu_torch.utils.bigint import NUM_WORDS
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parent.parent.parent / "build"
 SOURCES = ("field_kernels.cu", "ec_kernels.cu", "scan_kernels.cu",
-           "scan_full_kernels.cu", "gather_kernels.cu", "table_kernels.cu",
+           "ntt_kernels.cu", "gather_kernels.cu", "table_kernels.cu",
            "bucket_kernels.cu", "prefix_kernels.cu")
-HEADERS = ("field.cuh", "fp2.cuh", "rcb.cuh", "grid.cuh")
+HEADERS = ("field.cuh", "fp2.cuh", "rcb.cuh", "grid.cuh", "ntt.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -70,7 +73,8 @@ KERNEL_NAMES = ("butterfly", "mont_mul", "mul_sub", "add_points",
                 "double_points", "scan_accumulate_mixed",
                 "scan_accumulate_mixed_total", "scan_accumulate",
                 "row_gather", "mont_pow", "batch_inv_rows", "window_table",
-                "combine_windows", "lane_row_sums", "tree_sum", "prefix_sum")
+                "combine_windows", "lane_row_sums", "tree_sum", "prefix_sum",
+                "ntt_block")
 LAUNCHES = dict.fromkeys(KERNEL_NAMES, 0)
 
 _FIELD_IDS = {FR.name: 0, FQ.name: 1}
@@ -184,8 +188,11 @@ def lib():
                                           vp]
         cdll.oz_scan_mixed.argtypes = [ci, ci, vp, vp, ll, ll, ll, ci, ci, ci,
                                        addrs, vp]
-        cdll.oz_scan_full.argtypes = [ci, addrs, ll, vp, ll, ll, ll, ci, ci,
-                                      ci, addrs, vp]
+        cdll.oz_scan_full.argtypes = [ci, vp, vp, ll, ll, ll, ci, ci, ci,
+                                      addrs, vp]
+        cdll.oz_ntt_block.argtypes = [ci, ci, vp, vp, vp,
+                                      ctypes.POINTER(ll), vp, vp, ci, ll, ll,
+                                      vp]
         cdll.oz_row_gather.argtypes = [vp, ll, vp, ll, ci, vp, vp]
         words = ctypes.POINTER(ctypes.c_uint)
         cdll.oz_mont_pow.argtypes = [ci, vp, vp, ll, words, ci, vp]
@@ -202,7 +209,7 @@ def lib():
                    cdll.oz_row_gather, cdll.oz_mont_pow,
                    cdll.oz_batch_inv_rows, cdll.oz_window_table,
                    cdll.oz_combine_windows, cdll.oz_lane_row_sums,
-                   cdll.oz_tree_sum, cdll.oz_prefix_sum):
+                   cdll.oz_tree_sum, cdll.oz_prefix_sum, cdll.oz_ntt_block):
             fn.restype = ci
         _lib = cdll
     return _lib
@@ -327,6 +334,129 @@ def butterfly(spec: FieldSpec, a, b, w, dif: bool):
     _check(rc, "butterfly")
     LAUNCHES["butterfly"] += 1
     return o0, o1
+
+
+# ---------------------------------------------------------------------------
+# (a)'s chain: ntt_block
+# ---------------------------------------------------------------------------
+
+# the longest transform ntt_block takes: its shared-memory copy is 33 bytes
+# an element (132 KB at 2^12)
+NTT_BLOCK_MAX = 1 << 12
+
+
+@functools.cache
+def bitrev_perm(n: int, device) -> torch.Tensor:
+    """The bit-reversal permutation of range(n), n a power of two."""
+    logn = n.bit_length() - 1
+    idx = np.arange(n, dtype=np.int64)
+    rev = np.zeros(n, dtype=np.int64)
+    for b in range(logn):
+        rev |= ((idx >> b) & 1) << (logn - 1 - b)
+    return torch.from_numpy(rev).to(device)
+
+
+def butterfly_stages_plain(spec: FieldSpec, x, tw_table, dif: bool):
+    """All log2(n) butterfly stages along axis 1 of ``x``: int32[8, n] or
+    int32[8, n, B] (B independent trailing batches).
+
+    Stage with half-block m: element i pairs with i ^ m; the one with bit m
+    clear receives the sum, the other the difference; the twiddle of
+    position j = i mod m is tw_table[j * n / 2m].  DIF runs m = n/2 ... 1
+    with the twiddle applied after the subtract, DIT m = 1 ... n/2."""
+    n = x.shape[1]
+    logn = n.bit_length() - 1
+    tail = tuple(x.shape[2:])
+    ones = (1,) * len(tail)
+    for s in range(logn):
+        m = 1 << (logn - 1 - s if dif else s)
+        blocks = n // (2 * m)
+        v = x.reshape((x.shape[0], blocks, 2, m) + tail)
+        w = tw_table[:, ::blocks].reshape((x.shape[0], 1, m) + ones)
+        o0, o1 = butterfly_plain(spec, v[:, :, 0], v[:, :, 1], w, dif)
+        x = torch.stack([o0, o1], dim=2).reshape(x.shape)
+    return x
+
+
+def ntt_block_plain(spec: FieldSpec, x, tw, dif: bool, pre=None, post=None):
+    """post * T(pre * x) along axis 1: the butterfly stages over the batch,
+    the bit reversal after DIF or before DIT, the products by the tables."""
+    shape = (NUM_WORDS,) + tuple(x.shape[1:])
+    if pre is not None:
+        x = mont_mul_plain(spec, x, pre)
+    L = shape[1]
+    x = x.reshape(NUM_WORDS, L, -1)
+    perm = bitrev_perm(L, x.device)
+    if dif:
+        y = butterfly_stages_plain(spec, x, tw, True)[:, perm]
+    else:
+        y = butterfly_stages_plain(spec, x[:, perm], tw, False)
+    y = y.reshape(shape)
+    if post is not None:
+        y = mont_mul_plain(spec, y, post)
+    return y.contiguous()
+
+
+def _ntt_operand(t, shape, what: str):
+    """``t`` (int32 words) broadcast to ``shape``, or None."""
+    if t is None:
+        return None
+    if t.dtype != torch.int32 or t.dim() != len(shape) or t.shape[0] != NUM_WORDS:
+        raise TypeError(f"{what} must be int32[8, ...] of {len(shape)} axes, "
+                        f"got {t.dtype}{tuple(t.shape)}")
+    return t.expand(shape)
+
+
+def ntt_block(spec: FieldSpec, x, tw, dif: bool, pre=None, post=None):
+    """B independent radix-2 transforms along axis 1 of ``x`` in one launch,
+    every stage in shared memory: post * T(pre * x), natural order in and
+    out.
+
+    ``x``: int32[8, L, B] or int32[8, L, B1, B2] (any strides; the batch
+    entries are its trailing axes), L = 2^k with 2 <= L <= NTT_BLOCK_MAX.
+    ``tw``: int32[8, L/2], tw[k] = omega^k for the transform's root omega of
+    order L.  ``dif``: the stage order (DIF, bit reversal on the stores; or
+    DIT, on the loads): the same values either way.  ``pre`` / ``post``:
+    optional tables broadcast to x's shape, multiplied before the stages
+    (coset powers) and after them (4-step twiddles, coset powers, 1/n).
+    Returns a contiguous tensor of x's shape."""
+    if x.dtype != torch.int32 or x.dim() not in (3, 4) or x.shape[0] != NUM_WORDS:
+        raise TypeError(f"expected int32[8, L, B] or int32[8, L, B1, B2], "
+                        f"got {x.dtype}{tuple(x.shape)}")
+    L = x.shape[1]
+    if L < 2 or L & (L - 1) or L > NTT_BLOCK_MAX:
+        raise ValueError(f"transform length must be a power of two in "
+                         f"[2, {NTT_BLOCK_MAX}], got {L}")
+    if tw.dtype != torch.int32 or tuple(tw.shape) != (NUM_WORDS, L // 2):
+        raise TypeError(f"tw must be int32[8, {L // 2}], got "
+                        f"{tw.dtype}{tuple(tw.shape)}")
+    pre_v = _ntt_operand(pre, x.shape, "pre")
+    post_v = _ntt_operand(post, x.shape, "post")
+    for t in (tw, pre_v, post_v):
+        if t is not None and t.device != x.device:
+            raise ValueError("operands lie on different devices")
+    if not x.is_cuda:
+        return ntt_block_plain(spec, x, tw, dif, pre_v, post_v)
+    out = torch.empty(x.shape, dtype=torch.int32, device=x.device)
+    if out.numel() == 0:
+        return out
+    tw = tw.contiguous()
+    if x.dim() == 3:                  # one batch axis: the outer one is 1
+        x, pre_v, post_v = (None if t is None else t.unsqueeze(2)
+                            for t in (x, pre_v, post_v))
+    strides = []
+    for t in (x, pre_v, post_v):
+        strides += [0, 0, 0, 0] if t is None else list(t.stride())
+    inner = x.shape[3]
+    rc = lib().oz_ntt_block(
+        _field_id(spec), int(bool(dif)), x.data_ptr(),
+        None if pre_v is None else pre_v.data_ptr(),
+        None if post_v is None else post_v.data_ptr(),
+        (ctypes.c_longlong * 12)(*strides), tw.data_ptr(), out.data_ptr(),
+        L.bit_length() - 1, out.numel() // (NUM_WORDS * L), inner, _stream())
+    _check(rc, "ntt_block")
+    LAUNCHES["ntt_block"] += 1
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -878,22 +1008,47 @@ def _scan_full_operands(group_name: str, points, idx):
     return cd, comps
 
 
-def scan_accumulate_plain(group_name: str, points, idx):
-    """Per lane, full-add the indexed points onto a projective running sum
-    that starts at the identity: a Python loop over the rows."""
+def _full_scan_plain(group_name: str, idx, row_points, device):
+    """Per lane, full-add the points of each row of ``idx`` onto a projective
+    running sum that starts at the identity: a Python loop over the rows.
+    ``row_points(e)`` gives the component list of the points an index
+    tensor names."""
     from octopuszk_tpu_torch.curves import group_ops
     ops = plain_ops(group_name)
-    cd, comps = _scan_full_operands(group_name, points, idx)
     batch, rows, lanes = idx.shape
     e = idx.to(torch.int64)
-    carry = group_ops.infinity(ops, (batch, lanes), comps[0].device)
+    carry = group_ops.infinity(ops, (batch, lanes), device)
     prefixes = []
     for r in range(rows):
-        q = group_ops.rebuild_coords([c[:, e[:, r]] for c in comps], cd)
+        q = group_ops.rebuild_coords(row_points(e[:, r]), ops.coord_dim)
         carry = group_ops.add_formula(ops, carry, q)
         prefixes.append(group_ops.flatten_coords(carry))
     flat = [torch.stack(cs, dim=2) for cs in zip(*prefixes)]
-    return group_ops.rebuild_coords(flat, cd)
+    return group_ops.rebuild_coords(flat, ops.coord_dim)
+
+
+def scan_accumulate_plain(group_name: str, points, idx):
+    """The scan over the point batch's components, indexed directly."""
+    _, comps = _scan_full_operands(group_name, points, idx)
+    return _full_scan_plain(group_name, idx, lambda e: [c[:, e] for c in comps],
+                            comps[0].device)
+
+
+def _point_rows(comps):
+    """The components int32[8, n] of a projective batch as rows
+    int32[n, 24 | 48]: X, Y, Z (G2: X.c0, X.c1, Y.c0, ...), eight words
+    each; a layout copy."""
+    n = comps[0].shape[1]
+    return torch.stack([c.T for c in comps], dim=1).reshape(
+        n, len(comps) * NUM_WORDS)
+
+
+def _scan_rows_plain(group_name: str, rows_t, idx):
+    """The scan reading the repacked rows, as the kernel reads them."""
+    def row_points(e):
+        return list(rows_t[e].permute(2, 0, 1).reshape(
+            -1, NUM_WORDS, *e.shape).unbind(0))
+    return _full_scan_plain(group_name, idx, row_points, rows_t.device)
 
 
 def scan_accumulate(group_name: str, points, idx):
@@ -903,20 +1058,22 @@ def scan_accumulate(group_name: str, points, idx):
     components).  ``idx``: int32[batch, rows, lanes] (any strides) of point
     indices.  Lane (b, l) sums the points of rows 0..r of its column with
     the complete full add; returns projective coordinates
-    int32[8, batch, rows, lanes]."""
+    int32[8, batch, rows, lanes].  The batch is repacked once per call into
+    point rows, which the kernel reads through the index."""
     from octopuszk_tpu_torch.curves.group_ops import rebuild_coords
     cd, comps = _scan_full_operands(group_name, points, idx)
-    if not comps[0].is_cuda:
-        return scan_accumulate_plain(group_name, points, idx)
+    rows_t = _point_rows(comps)
+    if not rows_t.is_cuda:
+        return _scan_rows_plain(group_name, rows_t, idx)
     batch, rows, lanes = idx.shape
     outs = [torch.empty((NUM_WORDS, batch, rows, lanes), dtype=torch.int32,
                         device=comps[0].device) for _ in range(3 * cd)]
     if outs[0].numel() == 0 or _count(comps[0]) == 0:
         return rebuild_coords(outs, cd)
     sb, sr, sl = idx.stride()
-    rc = lib().oz_scan_full(cd, _addr_array(comps), _count(comps[0]),
-                            idx.data_ptr(), sb, sr, sl, batch, rows, lanes,
-                            _addr_array(outs), _stream())
+    rc = lib().oz_scan_full(cd, rows_t.data_ptr(), idx.data_ptr(), sb, sr,
+                            sl, batch, rows, lanes, _addr_array(outs),
+                            _stream())
     _check(rc, "scan_accumulate")
     LAUNCHES["scan_accumulate"] += 1
     return rebuild_coords(outs, cd)

@@ -20,8 +20,8 @@
 * **Variable-base Pippenger over an unpacked point batch**
   (``pippenger_msm``): unsigned c-bit digits, one stable argsort per window
   (all windows in one call), then the same two-level segmented prefix scan
-  with the full projective add (``scan_accumulate``, which reads the points
-  through the sorted order itself).  ``pippenger_msm_large`` packs an
+  with the full projective add (``scan_accumulate``, which repacks the
+  points into rows once and reads them through the sorted order itself).  ``pippenger_msm_large`` packs an
   unpacked batch and runs the packed pipeline.
 
 * **Host-streamed packed MSMs**: the packed MSMs run on the scalars'

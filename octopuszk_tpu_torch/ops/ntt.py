@@ -1,20 +1,20 @@
 """Radix-2 NTT over the BN254 scalar field on word tensors.
 
 Single-device evaluation-domain ops: a field vector is ``int32[8, n]``
-Montgomery words (fields/fp.py).  The forward transform is DIF and the
-inverse DIT, so bit-reversed order is internal only.  Each stage pairs the
-two halves of every block through strided views and hands them to the
-``butterfly`` kernel (ops/kernels.py); the twiddles come from one
-``omega^k`` table built by log2(n) doubling steps.  From ``FOUR_STEP_MIN``
-up the transform is the Bailey 4-step over a [R, C] view, which keeps every
-stage's blocks at most sqrt(n) long.
+Montgomery words (fields/fp.py).  A transform of n <= ``BLOCK_MAX`` is one
+``ntt_block`` launch (ops/kernels.py: every stage in shared memory, natural
+order in and out; forward DIF, inverse DIT).  A longer one is the Bailey
+4-step over an [R, C] view: the column transforms with the twiddles
+omega^(k1 j2) as their ``post`` table, then the row transforms, which read
+the columns' output through a transposed view and write natural order, so
+2^20 is two launches.  The coset powers ride the first launch as ``pre``,
+the scale 1/n (or g^-i / n) the last one as ``post``.  The tables depend on
+the field, the size, the direction and the device only, and are built on
+first use (by ``powers``) and kept (``_TABLES``).
 """
 
 from __future__ import annotations
 
-import functools
-
-import numpy as np
 import torch
 
 from octopuszk_tpu_torch.fields import fp
@@ -54,29 +54,6 @@ def powers_batched(spec: FieldSpec, bases, n: int):
     return out[:, :n].contiguous()
 
 
-def _butterfly_loop(spec: FieldSpec, x, tw_table, dif: bool):
-    """Run all log2(n) butterfly stages along axis 1 of ``x``: int32[8, n]
-    or int32[8, n, B] (B independent trailing batches, the column
-    transforms of the 4-step).
-
-    Stage with half-block m: element i pairs with i ^ m; the one with bit m
-    clear receives the sum, the other the difference; the twiddle of
-    position j = i mod m is omega^(j * n / 2m).  DIF runs m = n/2 ... 1
-    with the twiddle applied after the subtract, DIT m = 1 ... n/2."""
-    n = x.shape[1]
-    logn = n.bit_length() - 1
-    tail = tuple(x.shape[2:])
-    ones = (1,) * len(tail)
-    for s in range(logn):
-        m = 1 << (logn - 1 - s if dif else s)
-        blocks = n // (2 * m)
-        v = x.reshape((x.shape[0], blocks, 2, m) + tail)
-        w = tw_table[:, ::blocks].reshape((x.shape[0], 1, m) + ones)
-        o0, o1 = kernels.butterfly(spec, v[:, :, 0], v[:, :, 1], w, dif)
-        x = torch.stack([o0, o1], dim=2).reshape(x.shape)
-    return x
-
-
 def _emul(spec: FieldSpec, a, b):
     """Elementwise Montgomery multiply; ``b`` broadcasts to ``a``."""
     return fp.mont_mul(spec, a, b)
@@ -89,8 +66,109 @@ def _omega(spec: FieldSpec, n: int, inverse: bool, device):
     return _elem(spec, w, device)
 
 
-# from this size up the transform is the 4-step (see module docstring)
-FOUR_STEP_MIN = 1 << 18
+# sub-transforms of at most this length are one ntt_block launch (a longer
+# transform is the 4-step over sub-transforms of at most this length)
+BLOCK_MAX = kernels.NTT_BLOCK_MAX
+
+# device tables by (kind, field, size, direction, device)
+_TABLES: dict = {}
+
+
+def _table(key, build):
+    t = _TABLES.get(key)
+    if t is None:
+        t = _TABLES[key] = build()
+    return t
+
+
+def _stage_twiddles(spec: FieldSpec, n: int, inverse: bool, device):
+    """omega^k, k < n/2, for omega (or omega^-1) of order n: int32[8, n/2]."""
+    return _table(("stage", spec.name, n, inverse, device), lambda: powers(
+        spec, _omega(spec, n, inverse, device), n // 2))
+
+
+def _four_step_twiddles(spec: FieldSpec, R: int, C: int, inverse: bool,
+                        device):
+    """omega^(k1 j2) for omega of order R C: int32[8, R, C]."""
+    def build():
+        bases = powers(spec, _omega(spec, R * C, inverse, device), C)
+        return powers_batched(spec, bases, R)
+    return _table(("4-step", spec.name, R, C, inverse, device), build)
+
+
+def _coset_table(spec: FieldSpec, n: int, inverse: bool, device):
+    """g^i (forward) or g^-i / n (inverse, with the iNTT's scale), i < n:
+    int32[8, n]."""
+    def build():
+        g = spec.generator if not inverse else pow(spec.generator, -1,
+                                                   spec.p)
+        t = powers(spec, _elem(spec, g, device), n)
+        return _emul(spec, t, _scale(spec, n, device)) if inverse else t
+    return _table(("coset", spec.name, n, inverse, device), build)
+
+
+def _scale(spec: FieldSpec, n: int, device):
+    """1/n as int32[8, 1]."""
+    return _table(("scale", spec.name, n, device), lambda: _elem(
+        spec, pow(n, -1, spec.p), device)[:, None])
+
+
+def _as_view(table, a: int, b: int):
+    """An int32[8, a b] table (or an int32[8, 1] constant) in natural order
+    as int32[8, a, b, 1] (or [8, 1, 1, 1])."""
+    if table is None:
+        return None
+    if table.shape[1] == 1:
+        return table[:, :, None, None]
+    return table.reshape(table.shape[0], a, b, 1)
+
+
+def _transform(spec: FieldSpec, x, inverse: bool, pre=None, post=None):
+    """post * T(pre * x) along axis 1 of int32[8, n, B] (any strides), T
+    the unscaled transform by omega (inverse: omega^-1) of order n >= 2;
+    ``pre`` / ``post``: int32[8, n] tables in natural order or int32[8, 1]
+    constants, the same for every b.  Returns a contiguous int32[8, n, B]."""
+    n = x.shape[1]
+    if n <= BLOCK_MAX:
+        return kernels.ntt_block(
+            spec, x, _stage_twiddles(spec, n, inverse, x.device), not inverse,
+            None if pre is None else pre[:, :, None],
+            None if post is None else post[:, :, None])
+    return _four_step(spec, x, inverse, pre, post)
+
+
+def _four_step(spec: FieldSpec, x, inverse: bool, pre=None, post=None):
+    """The Bailey 4-step of ``_transform`` over the view [R, C] of the
+    n = R C positions (row-major; R = C or 2 C): x[j1 C + j2] -> column
+    transforms of length R over j1, times omega^(k1 j2), row transforms of
+    length C over j2; output position k1 + R k2.  A sub-transform longer
+    than BLOCK_MAX is a 4-step of its own, with its tables applied apart."""
+    W, n, B = x.shape
+    dev = x.device
+    logn = n.bit_length() - 1
+    R, C = 1 << ((logn + 1) // 2), 1 << (logn // 2)
+    tw4 = _four_step_twiddles(spec, R, C, inverse, dev)[..., None]
+    x4 = x.reshape(W, R, C, B)
+    pre4 = _as_view(pre, R, C)
+    if R <= BLOCK_MAX:                                   # columns
+        y = kernels.ntt_block(spec, x4, _stage_twiddles(spec, R, inverse, dev),
+                              not inverse, pre4, tw4)
+    else:
+        if pre4 is not None:
+            x4 = _emul(spec, x4, pre4)
+        y = _transform(spec, x4.reshape(W, R, C * B), inverse)
+        y = _emul(spec, y.reshape(W, R, C, B), tw4)
+    rows = y.permute(0, 2, 1, 3)                         # [8, C, R, B] view
+    post4 = _as_view(post, C, R)
+    if C <= BLOCK_MAX:
+        z = kernels.ntt_block(spec, rows, _stage_twiddles(spec, C, inverse,
+                                                          dev),
+                              not inverse, None, post4)
+    else:
+        z = _transform(spec, rows.reshape(W, C, R * B), inverse)
+        if post4 is not None:
+            z = _emul(spec, z.reshape(W, C, R, B), post4)
+    return z.reshape(W, n, B)
 
 
 def ntt(spec: FieldSpec, coeffs):
@@ -98,11 +176,7 @@ def ntt(spec: FieldSpec, coeffs):
     n = coeffs.shape[1]
     if n == 1:
         return coeffs
-    if n >= FOUR_STEP_MIN:
-        return _ntt_4step(spec, coeffs, inverse=False)
-    tw = powers(spec, _omega(spec, n, False, coeffs.device), n // 2)
-    y = _butterfly_loop(spec, coeffs, tw, dif=True)
-    return y[:, _bitrev_perm(n, coeffs.device)]
+    return _transform(spec, coeffs[:, :, None], False)[:, :, 0]
 
 
 def intt(spec: FieldSpec, evals):
@@ -110,31 +184,15 @@ def intt(spec: FieldSpec, evals):
     n = evals.shape[1]
     if n == 1:
         return evals
-    if n >= FOUR_STEP_MIN:
-        return _ntt_4step(spec, evals, inverse=True)
-    tw = powers(spec, _omega(spec, n, True, evals.device), n // 2)
-    y = _butterfly_loop(spec, evals[:, _bitrev_perm(n, evals.device)], tw,
-                        dif=False)
-    return _emul(spec, y, _elem(spec, pow(n, -1, spec.p),
-                                evals.device)[:, None])
+    return _transform(spec, evals[:, :, None], True,
+                      post=_scale(spec, n, evals.device))[:, :, 0]
 
 
 def _ntt_4step(spec: FieldSpec, x, inverse: bool):
-    """Serial Bailey 4-step: view [R, C] row-major, transform columns,
-    twiddle by omega^(k1*j2), transform rows, transpose to natural order."""
-    L, n = x.shape
-    logn = n.bit_length() - 1
-    R, C = 1 << ((logn + 1) // 2), 1 << (logn // 2)
-    omega = spec.rou_of_order(n)
-    if inverse:
-        omega = pow(omega, -1, spec.p)
-    xl = ntt_batched(spec, x.reshape(L, R, C), inverse=inverse)  # columns
-    bases = powers(spec, _elem(spec, omega, x.device), C)     # omega^{j2}
-    tw = powers_batched(spec, bases, R)                       # omega^{j2*k1}
-    xl = _emul(spec, xl, tw)
-    xl = ntt_batched(spec, xl.transpose(1, 2).contiguous(),
-                     inverse=inverse)                         # rows: [L, C, R]
-    return xl.reshape(L, n)
+    """ntt / intt of int32[8, n], n >= 4, by the 4-step whatever its
+    size."""
+    post = _scale(spec, x.shape[1], x.device) if inverse else None
+    return _four_step(spec, x[:, :, None], inverse, None, post)[:, :, 0]
 
 
 def ntt_batched(spec: FieldSpec, x, inverse: bool = False):
@@ -142,23 +200,8 @@ def ntt_batched(spec: FieldSpec, x, inverse: bool = False):
     n = x.shape[1]
     if n == 1:
         return x
-    tw = powers(spec, _omega(spec, n, inverse, x.device), n // 2)
-    perm = _bitrev_perm(n, x.device)
-    if inverse:
-        y = _butterfly_loop(spec, x[:, perm], tw, dif=False)
-        return _emul(spec, y, _elem(spec, pow(n, -1, spec.p),
-                                    x.device)[:, None, None])
-    return _butterfly_loop(spec, x, tw, dif=True)[:, perm]
-
-
-@functools.cache
-def _bitrev_perm(n: int, device) -> torch.Tensor:
-    logn = n.bit_length() - 1
-    idx = np.arange(n, dtype=np.int64)
-    rev = np.zeros(n, dtype=np.int64)
-    for b in range(logn):
-        rev |= ((idx >> b) & 1) << (logn - 1 - b)
-    return torch.from_numpy(rev).to(device)
+    post = _scale(spec, n, x.device) if inverse else None
+    return _transform(spec, x, inverse, post=post)
 
 
 def multiply_by_coset(spec: FieldSpec, x, inverse: bool = False):
@@ -169,13 +212,22 @@ def multiply_by_coset(spec: FieldSpec, x, inverse: bool = False):
 
 
 def coset_ntt(spec: FieldSpec, coeffs):
-    """Evaluate on the coset g*H."""
-    return ntt(spec, multiply_by_coset(spec, coeffs))
+    """Evaluate on the coset g*H: the transform of x[i] g^i."""
+    n = coeffs.shape[1]
+    pre = _coset_table(spec, n, False, coeffs.device)
+    if n == 1:
+        return _emul(spec, coeffs, pre)
+    return _transform(spec, coeffs[:, :, None], False, pre=pre)[:, :, 0]
 
 
 def coset_intt(spec: FieldSpec, evals):
-    """Interpolate from the coset g*H."""
-    return multiply_by_coset(spec, intt(spec, evals), inverse=True)
+    """Interpolate from the coset g*H: the inverse transform times
+    g^-i / n."""
+    n = evals.shape[1]
+    post = _coset_table(spec, n, True, evals.device)
+    if n == 1:
+        return _emul(spec, evals, post)
+    return _transform(spec, evals[:, :, None], True, post=post)[:, :, 0]
 
 
 def lagrange_coeffs(spec: FieldSpec, n: int, t):

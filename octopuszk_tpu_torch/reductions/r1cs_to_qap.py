@@ -9,6 +9,7 @@ domain -> iNTT -> coset NTT -> H = (A*B - C)/Z on the coset -> coset iNTT.
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import torch
 
@@ -59,10 +60,22 @@ def qap_instance(spec: FieldSpec, r1cs: R1CS, t: int) -> QAPInstance:
                        num_inputs=ni, num_variables=m, degree=n)
 
 
-def qap_witness(spec: FieldSpec, r1cs: R1CS, n: int, z):
+def qap_witness(spec: FieldSpec, r1cs: R1CS, n: int, z, stage_seconds=None):
     """Witness map: full assignment z (int32[8, m] Montgomery) -> H
-    coefficients int32[8, n+1] Montgomery (degree <= n-2, top two zero)."""
+    coefficients int32[8, n+1] Montgomery (degree <= n-2, top two zero).
+    ``stage_seconds``, where given, receives the wall time of the three
+    matvecs (``matvecs``), of their six transforms (``transforms``) and of
+    H = (A*B - C) / Z on the coset with its coset iNTT (``h``)."""
     nc, ni = r1cs.num_constraints, r1cs.num_inputs
+    t0 = time.perf_counter()
+
+    def mark(label):
+        nonlocal t0
+        if stage_seconds is not None:
+            if z.is_cuda:
+                torch.cuda.synchronize(z.device)
+            stage_seconds[label] = time.perf_counter() - t0
+            t0 = time.perf_counter()
 
     def evals(mat, with_inputs):
         # evaluations on the domain: constraints, then (for A) the
@@ -71,12 +84,15 @@ def qap_witness(spec: FieldSpec, r1cs: R1CS, n: int, z):
         e[:, :nc] = matvec(spec, mat, z)
         if with_inputs:
             e[:, nc:nc + ni] = z[:, :ni]
-        return ntt.coset_ntt(spec, ntt.intt(spec, e))
+        return e
 
-    a_coset = evals(r1cs.a, True)
-    b_coset = evals(r1cs.b, False)
-    c_coset = evals(r1cs.c, False)
+    abc = [evals(r1cs.a, True), evals(r1cs.b, False), evals(r1cs.c, False)]
+    mark("matvecs")
+    a_coset, b_coset, c_coset = (ntt.coset_ntt(spec, ntt.intt(spec, e))
+                                 for e in abc)
+    mark("transforms")
     h_coset = kernels.mul_sub(spec, a_coset, b_coset, c_coset)
     h_coset = ntt.divide_by_z_on_coset(spec, h_coset)
     h = ntt.coset_intt(spec, h_coset)             # [8, n]
+    mark("h")
     return torch.cat([h, torch.zeros_like(h[:, :1])], dim=1)

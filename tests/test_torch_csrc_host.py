@@ -33,7 +33,9 @@ HARNESS = r"""
 #define __device__
 #define __forceinline__ inline
 #define __noinline__
+#include <vector>
 #include "rcb.cuh"
+#include "ntt.cuh"
 
 template <class M> using Op2 = Fp<M> (*)(const Fp<M>&, const Fp<M>&);
 
@@ -183,6 +185,44 @@ extern "C" void chain_op(int op, int group, uint32_t* const* a,
                          long n, int x, int y) {
   if (group == 1) chain<G1Coord>(op, group, a, b, out, batch, n, x, y);
   else chain<G2Coord>(op, group, a, b, out, batch, n, x, y);
+}
+
+// one thread: every item of a phase in order, no barrier needed
+struct HostBlock {
+  unsigned first() const { return 0; }
+  unsigned step() const { return 1; }
+  void barrier() {}
+};
+
+template <class M, bool DIF>
+static void ntt_all(const NttArgs& a) {
+  std::vector<uint32_t> s(8 * ntt_smem_stride(1u << a.log_l));
+  HostBlock sched;
+  for (long long b = 0; b < a.batch; b++)
+    ntt_block_run<M, DIF>(a, s.data(), b, sched);
+}
+
+static NttView view(const uint32_t* p, const long long* st) {
+  return {p, st[0], st[1], st[2], st[3]};
+}
+
+// the transforms of ntt_kernels.cu's blocks, one after the other; strides:
+// x, pre, post (word, l, outer batch, inner batch) in turn
+extern "C" void ntt_block_op(int dif, const uint32_t* x, const uint32_t* pre,
+                             const uint32_t* post, const long long* st,
+                             const uint32_t* tw, uint32_t* out, int log_l,
+                             long long batch, long long inner) {
+  NttArgs a;
+  a.x = view(x, st);
+  a.pre = view(pre, st + 4);
+  a.post = view(post, st + 8);
+  a.tw = tw;
+  a.out = out;
+  a.log_l = log_l;
+  a.batch = batch;
+  a.inner = inner;
+  if (dif) ntt_all<FrMod, true>(a);
+  else ntt_all<FrMod, false>(a);
 }
 """
 
@@ -363,3 +403,43 @@ def test_point_chains(host_lib, gname):
     got = _chain(host_lib, 4, gname, wins, None, (8, 2), 2, 4, 5)
     want = kernels.combine_windows_plain(gname, wins, 5)
     assert all(torch.equal(x, y) for x, y in zip(got, _flat(want)))
+
+
+@pytest.mark.parametrize("log_l", [6, 5])
+@pytest.mark.parametrize("dif", [True, False])
+def test_ntt_block_stages(host_lib, dif, log_l):
+    """ntt.cuh's transform (load with ``pre`` and, for DIT, the bit
+    reversal; the stages; store with the bit reversal for DIF and ``post``)
+    at L = 64 and 32 over Fr, one transform after another as the kernel's
+    blocks run them: a batch of 2 x 3 read through a transposed view, with
+    a ``pre`` table broadcast over the inner batch and a full ``post``
+    table, and without tables, against ntt_block_plain."""
+    from octopuszk_tpu_torch.ops import ntt
+    spec = tspec.FR
+    L, b1, b2 = 1 << log_l, 2, 3
+    rng = random.Random(7)
+
+    def field(*shape):
+        cnt = 1
+        for d in shape:
+            cnt *= d
+        vals = [rng.randrange(spec.p) for _ in range(cnt)]
+        vals[:3] = [0, 1, spec.p - 1]
+        return _words(vals).reshape((8,) + shape)
+
+    x = field(b1, L, b2).permute(0, 2, 1, 3)         # [8, L, b1, b2] view
+    pre = field(L, b1, 1).expand(8, L, b1, b2)
+    post = field(L, b1, b2)
+    tw = ntt._stage_twiddles(spec, L, not dif, "cpu")
+    for p_, q_ in ((pre, post), (None, None)):
+        strides = []
+        for t in (x, p_, q_):
+            strides += [0] * 4 if t is None else list(t.stride())
+        out = torch.empty((8, L, b1, b2), dtype=torch.int32)
+        host_lib.ntt_block_op(
+            int(dif), _ptr(x), None if p_ is None else _ptr(p_),
+            None if q_ is None else _ptr(q_),
+            (ctypes.c_longlong * 12)(*strides), _ptr(tw), _ptr(out), log_l,
+            ctypes.c_longlong(b1 * b2), ctypes.c_longlong(b2))
+        want = kernels.ntt_block_plain(spec, x, tw, dif, p_, q_)
+        assert torch.equal(out, want), (dif, p_ is None)

@@ -268,7 +268,7 @@ def test_prover_runs_on_the_r1cs_device(ported, monkeypatch):
     elsewhere = {q: getattr(pk, q).to("meta") for q in QUERIES}
     seen = []
 
-    def witness_map(fr, r1cs, n, z):
+    def witness_map(fr, r1cs, n, z, stage_seconds=None):
         seen.append(z.device)
         return torch.zeros((8, n), dtype=torch.int32, device=z.device)
 

@@ -66,9 +66,9 @@ def test_every_module_and_source_is_covered():
                 "octopuszk_tpu_torch.profiler.__main__"):
         assert mod in MODULES
     names = {p.name for p in SOURCES}
-    assert {"scan_full_kernels.cu", "scan_kernels.cu", "gather_kernels.cu",
-            "table_kernels.cu", "bucket_kernels.cu", "prefix_kernels.cu",
-            "chip_smoke.py"} <= names
+    assert {"ntt_kernels.cu", "ntt.cuh", "scan_kernels.cu",
+            "gather_kernels.cu", "table_kernels.cu", "bucket_kernels.cu",
+            "prefix_kernels.cu", "chip_smoke.py"} <= names
 
 
 def test_entry_points_default_to_the_card(tmp_path):
