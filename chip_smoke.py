@@ -17,19 +17,34 @@ points, in three ways that must give the same proof:
   temporary directory, read back with ``load_crs(stream=True)`` (queries in
   pinned host memory) and proved by staging them to the card.
 
+The second curve, BN254b, has a path of its own (``bn254b``: construct ->
+setup -> packed prove -> verify at the same size, then the same CRS
+unpacked and proved through kernel h; both proofs equal, verified, a
+tampered input rejected), its own kernel records (every kernel and variant
+but the row gather, which knows no curve, at the main path's shapes; for
+the two kernels whose plain version's time grows with its output, it
+computes a part that stands alone, named in the record's ``plain_part``:
+2^18 of g's 2^21 lanes, two of the fixed-base table's 17 windows) and two
+MSMs in the ``oracle`` line; its path and the ``zksnark-large`` app must
+launch every kernel they are built on with BN254b operands
+(``kernels.CURVE_LAUNCHES``).  Every record carries its ``curve``.
+
 Then it runs the port's gather experiment (``gather``: kernel i against
 ``torch.index_select`` over 2^21 rows of 128 words), checks that an index
 out of range makes kernel i fail (in child processes), and runs every
 serial app of the port's profiler through ``profiler.main`` (``profiler
 <app> <log2>``, the reference's apps and printed lines, plus ``zksnark``
-with 1023 inputs); a verifying app must verify, and the ``bace`` proof is
+with 1023 inputs; ``zksnark-large`` is Groth16 on BN254b); a verifying app
+must verify, and the ``bace`` proof is
 verified again beside a tampered one that must be rejected.
 
 Each path and app runs with the launch counts set to 0 and must launch the
-kernels it is built on.  Two variable-base MSMs (packed and unpacked) are
-checked against python-int curve arithmetic.
+kernels it is built on.  Four variable-base MSMs (BN254a packed and
+unpacked, BN254b G1 and G2 packed) are checked against python-int curve
+arithmetic.
 
-Output: one JSON object per line (``env``, one ``path`` per path,
+Output: one JSON object per line (``env`` with each curve's build seconds,
+one ``path`` per path,
 ``profile``, ``oracle``, ``gather_out_of_range``, one ``profiler`` per app,
 ``launches``, ``kernels``;
 the gather experiment's and the apps' own lines between them), then the
@@ -45,10 +60,11 @@ Every prove's stages split the witness map into its matvecs, transforms
 and H (``witness-map:*``).  The ``kernels`` line holds, for each kernel
 and variant, its time beside its bound, its plain version's and, where
 one exists, a library call's, and its launches per path; a ``launches``
-line holds the counts per path and kernel; the ``env`` line holds ptxas's
-registers and spills for every kernel.  ``double_points`` has one record per doubling chain of the main
-path (the Abel sum's, the window table's; the window combine's is now
-inside ``combine_windows``), timed per chain: one launch each.  The
+line holds the counts per path and kernel (and per curve); the ``env``
+line holds ptxas's registers and spills for every kernel and unit.
+``double_points`` has one record per doubling chain of the main path (the
+Abel sum's, the window table's; the window combine's is now inside
+``combine_windows``), timed per chain: one launch each.  The
 chains of ``mont_mul`` and ``add_points`` that run as one launch each
 (``mont_pow``, ``batch_inv_rows``, ``window_table``, ``lane_row_sums``,
 ``tree_sum``, ``prefix_sum``, ``combine_windows``) have records at the
@@ -64,6 +80,7 @@ card: up to 2^12 the 4-step NTT is not run).
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import csv
 import dataclasses
@@ -79,7 +96,8 @@ import time
 import torch
 
 from octopuszk_tpu_torch.curves import bn254, host_curve
-from octopuszk_tpu_torch.fields.spec import FQ, FR
+from octopuszk_tpu_torch.curves.family import bn254b
+from octopuszk_tpu_torch.fields.spec import FR
 from octopuszk_tpu_torch.models.groth16 import (
     prover, serialize, setup, verifier)
 from octopuszk_tpu_torch.ops import kernels, msm, ntt
@@ -147,6 +165,8 @@ REQUIRED = {
     "unpacked": _PROVE_KERNELS | {"scan_accumulate"},
     "streamed": _PROVE_KERNELS | {"scan_accumulate_mixed"},
     "gather": {"row_gather"},
+    # BN254b: construct, setup, a packed and an unpacked prove
+    "bn254b": _GROTH16_KERNELS | {"scan_accumulate"},
 }
 # The profiler's serial apps, as ``profiler.main`` runs them, each with the
 # kernels its path reaches; all at the main path's size but those in
@@ -162,15 +182,20 @@ PROFILER_APPS = [
     (["witness"], {"ntt_block", "mont_mul", "mul_sub"}),
     (["zksnark"], _GROTH16_KERNELS),
     (["zksnark", "--inputs=1023"], _GROTH16_KERNELS),
+    (["zksnark-large"], _GROTH16_KERNELS),
     (["bace"], {"ntt_block", "mont_mul"}),
     (["matmul"], _GROTH16_KERNELS),
     (["regression"], _GROTH16_KERNELS),
     (["gaussian"], _GROTH16_KERNELS),
 ]
-# log2 steps below the main path's size: regression's verifier is a
+# log2 steps below the main path's size, for the apps whose host work
+# outgrows the script's time budget (PERF.md): regression's verifier is a
 # python-int MSM over every public input, about 0.95 x its constraints
-# (249,053 at 2^18, 1,000,924 at 2^20)
-PROFILER_CUTS = {"regression": 2}
+# (249,053 at 2^18: 244-344 s of the script), gaussian took 116 s at 2^20
+# and matmul 22-28 s
+PROFILER_CUTS = {"regression": 2, "gaussian": 2, "matmul": 2}
+# the apps that run on BN254b: their kernels must launch with its operands
+PROFILER_CURVES = {"zksnark-large": "bn254b"}
 # field products per curve operation (products + those inside mul_b3)
 MONT_MULS = {("add", 1): 12, ("add", 2): 12 * 3 + 2 * 3,
              ("double", 1): 8, ("double", 2): 8 * 3 + 3,
@@ -261,19 +286,37 @@ def bound(bytes_moved: float, mads: float, int32_rate: float):
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-def check_kernels(dev, log2: int, int32_rate: float, reps: int):
-    """Returns one record per kernel and variant.  ``log2`` sets the shapes
-    to those the main path uses at 2^log2 constraints."""
+# the lanes of (g) whose totals a part-only check holds to the plain version
+PART_LANES = 1 << 18
+
+
+def check_kernels(dev, log2: int, int32_rate: float, reps: int,
+                  curve: str = "bn254a", whole: bool = True):
+    """Returns one record per kernel and variant of a curve, every kernel
+    launched at the shapes the main path gives it at 2^log2 constraints.
+    ``whole``: compare the whole output with the plain version; else, for
+    (g) and the window table, whose plain versions' time grows with their
+    lanes and windows, a part of the output that stands alone (named in
+    the record's ``plain_part``; the plain version computes that part
+    only).  The row
+    gather, which knows no curve, has its records with the first curve."""
     gen = torch.Generator(device=dev).manual_seed(20)
     records = []
+    cv = kernels.CURVES[curve][0]()
+    fr, fq = cv.fr, cv.fq
+    groups = ((1, cv.g1.name), (2, cv.g2.name))
 
     def record(name, variant, shape, kernel_fn, plain_fn, bytes_moved, mads,
-               library_fn=None):
+               library_fn=None, part=None):
         """kernel_fn, at ``shape``, is timed, and the output of its last
         timed launch is compared with plain_fn on the same inputs;
         library_fn, where given, is one PyTorch call that computes the same
-        function, timed likewise."""
+        function, timed likewise.  ``part``: (what, take) where plain_fn
+        computes only a part of the output, ``take`` cuts that part from
+        the kernel's output (``plain_ms`` is then the part's time)."""
         ms, got = time_ms(kernel_fn, dev, reps)
+        if part is not None:
+            got = part[1](got)
         library_ms = None
         if library_fn is not None:
             library_ms, _ = time_ms(library_fn, dev, reps)
@@ -291,10 +334,10 @@ def check_kernels(dev, log2: int, int32_rate: float, reps: int):
         del got, want
         b_ms, b_by = bound(bytes_moved, mads, int32_rate)
         records.append({
-            "name": name, "variant": variant, "route": "cuda",
+            "name": name, "curve": curve, "variant": variant, "route": "cuda",
             "source": SOURCE[name], "replaces": REPLACES[name],
             "shape": shape, "equal": ok, "max_abs_err": diff, "ms": ms,
-            "plain_ms": plain_ms,
+            "plain_ms": plain_ms, "plain_part": part and part[0],
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
             "tolerance": "exact"})
         if not ok:
@@ -312,8 +355,8 @@ def check_kernels(dev, log2: int, int32_rate: float, reps: int):
         moved = ELEM_BYTES * (2 * x.numel() // 8 + tw.numel() // 8 + sum(
             t.untyped_storage().nbytes() // 4 // 8 for t in tables))
         record("ntt_block", variant, list(x.shape),
-               lambda: kernels.ntt_block(FR, x, tw, dif, pre, post),
-               lambda: kernels.ntt_block_plain(FR, x, tw, dif, pre, post),
+               lambda: kernels.ntt_block(fr, x, tw, dif, pre, post),
+               lambda: kernels.ntt_block_plain(fr, x, tw, dif, pre, post),
                moved, MADS_PER_MONT_MUL * prods)
 
     n = 1 << log2
@@ -321,7 +364,7 @@ def check_kernels(dev, log2: int, int32_rate: float, reps: int):
     # (the reference's per-stage kernel; no path launches it since
     # ntt_block; the Fq instance is built as well)
     half = n // 2
-    for spec, tag in ((FR, "Fr"), (FQ, "Fq")):
+    for spec, tag in ((fr, "Fr"), (fq, "Fq")):
         for dif in (True, False):
             a, b, w = (rand_field(gen, (half,), dev) for _ in range(3))
             record("butterfly", f"{tag} {'DIF' if dif else 'DIT'} (off the "
@@ -339,26 +382,26 @@ def check_kernels(dev, log2: int, int32_rate: float, reps: int):
     R, C = 1 << ((log2 + 1) // 2), 1 << (log2 // 2)
     for inverse in (False, True):
         what = "coset iNTT" if inverse else "coset NTT"
-        tw4 = ntt._four_step_twiddles(FR, R, C, inverse, dev)[..., None]
-        coset = ntt._coset_table(FR, n, inverse, dev)
+        tw4 = ntt._four_step_twiddles(fr, R, C, inverse, dev)[..., None]
+        coset = ntt._coset_table(fr, n, inverse, dev)
         x = rand_field(gen, (R, C, 1), dev)
         pre = None if inverse else coset.reshape(8, R, C, 1)
         ntt_record(f"Fr 2^{log2} {what}, columns", x,
-                   ntt._stage_twiddles(FR, R, inverse, dev), not inverse,
+                   ntt._stage_twiddles(fr, R, inverse, dev), not inverse,
                    pre, tw4)
         post = coset.reshape(8, C, R, 1) if inverse else None
         ntt_record(f"Fr 2^{log2} {what}, rows (transposed view)",
                    rand_field(gen, (R, C, 1), dev).permute(0, 2, 1, 3),
-                   ntt._stage_twiddles(FR, C, inverse, dev), not inverse,
+                   ntt._stage_twiddles(fr, C, inverse, dev), not inverse,
                    None, post)
         del tw4, coset, x, pre, post
     L1 = kernels.NTT_BLOCK_MAX
     ntt_record(f"Fr 2^{L1.bit_length() - 1} iNTT, one launch (B = 1)",
                rand_field(gen, (L1, 1), dev),
-               ntt._stage_twiddles(FR, L1, True, dev), False, None,
-               ntt._scale(FR, L1, dev)[:, :, None])
+               ntt._stage_twiddles(fr, L1, True, dev), False, None,
+               ntt._scale(fr, L1, dev)[:, :, None])
     # (b) mont_mul: Fr at the NTT size, Fq at the packed-query size
-    for spec, tag, cnt in ((FR, "Fr", n), (FQ, "Fq", 2 * n)):
+    for spec, tag, cnt in ((fr, "Fr", n), (fq, "Fq", 2 * n)):
         a, b = rand_field(gen, (cnt,), dev), rand_field(gen, (cnt,), dev)
         record("mont_mul", tag, [8, cnt],
                lambda: kernels.mont_mul(spec, a, b),
@@ -369,13 +412,13 @@ def check_kernels(dev, log2: int, int32_rate: float, reps: int):
     # packed query (2^(log2+1) points, some zero) and of a fixed-base table
     # (17 windows of 2^15 at 2^20).  A batch inversion needs 3 products per
     # non-zero element and one Fermat chain, however it groups its lanes.
-    pm2 = FQ.p_minus_2
+    pm2 = fq.p_minus_2
     fermat = (pm2.bit_length() - 1) + (bin(pm2).count("1") - 1)
     for cnt in (1, 4096):
         a = rand_field(gen, (cnt,), dev)
         record("mont_pow", "Fq, q - 2", [8, cnt],
-               lambda: kernels.mont_pow(FQ, a, pm2),
-               lambda: kernels.mont_pow_plain(FQ, a, pm2),
+               lambda: kernels.mont_pow(fq, a, pm2),
+               lambda: kernels.mont_pow_plain(fq, a, pm2),
                2 * ELEM_BYTES * cnt, MADS_PER_MONT_MUL * fermat * cnt)
     w_table = msm._choose_w_packed(2 * n)
     table_entries = -(-msm.SCALAR_BITS // w_table) << w_table
@@ -385,12 +428,12 @@ def check_kernels(dev, log2: int, int32_rate: float, reps: int):
         nonzero = int((a != 0).any(0).sum())
         record("batch_inv_rows", f"Fq, {min(kernels.INV_LANES, cnt)} lanes",
                [8, cnt],
-               lambda: kernels.batch_inv_rows(FQ, a),
-               lambda: kernels.batch_inv_rows_plain(FQ, a),
+               lambda: kernels.batch_inv_rows(fq, a),
+               lambda: kernels.batch_inv_rows_plain(fq, a),
                2 * ELEM_BYTES * cnt,
                MADS_PER_MONT_MUL * (3 * nonzero + fermat))
     # (c) mul_sub
-    for spec, tag in ((FR, "Fr"), (FQ, "Fq")):
+    for spec, tag in ((fr, "Fr"), (fq, "Fq")):
         a, b, c = (rand_field(gen, (n,), dev) for _ in range(3))
         record("mul_sub", tag, [8, n],
                lambda: kernels.mul_sub(spec, a, b, c),
@@ -407,7 +450,7 @@ def check_kernels(dev, log2: int, int32_rate: float, reps: int):
     w_fixed = msm._choose_w_packed(2 * n) if 2 * n >= msm.FIXED_PACKED_MIN \
         else msm._choose_w(2 * n)
     outerc = -(-msm.SCALAR_BITS // w_fixed)
-    for cd, g in ((1, "G1"), (2, "G2")):
+    for cd, g in groups:
         pt_bytes = 3 * cd * ELEM_BYTES
         add_mads = MONT_MULS["add", cd] * MADS_PER_MONT_MUL
         # (d) add_points at the bucket phase's shape [num_win, 2^(c-1)+1]
@@ -425,16 +468,32 @@ def check_kernels(dev, log2: int, int32_rate: float, reps: int):
         # (an entry's masked adds run in increasing bit order, so the entry
         # without its top bit is the prefix of its chain: the same words
         # need one add per entry with a non-zero digit)
+        # (a part: the first and the last window; window k alone is the
+        # table of one window of the base [2^(k w)] G = powers[k w - 1])
         base1 = rand_point(gen, cd, (), dev)
         powers = rand_point(gen, cd, (outerc * w_fixed,), dev)
         entries = outerc << w_fixed
+        ends = [0, outerc - 1]
+
+        def table_part():
+            parts = [flat(kernels.window_table_plain(
+                g, base1 if k == 0 else msm._map_coords(
+                    powers, lambda c: c[..., k * w_fixed - 1]),
+                msm._map_coords(powers, lambda c: c[..., k * w_fixed:]),
+                w_fixed, 1)) for k in ends]
+            return [torch.cat(cs, dim=1) for cs in zip(*parts)]
+
         record("window_table", f"{g}, w = {w_fixed}, outerc = {outerc}",
                [8, outerc, 1 << w_fixed],
                lambda: kernels.window_table(g, base1, powers, w_fixed, outerc),
-               lambda: kernels.window_table_plain(g, base1, powers, w_fixed,
-                                                  outerc),
+               (lambda: kernels.window_table_plain(g, base1, powers, w_fixed,
+                                                   outerc)) if whole
+               else table_part,
                pt_bytes * (1 + outerc * w_fixed + entries),
-               add_mads * (entries - outerc))
+               add_mads * (entries - outerc),
+               part=None if whole else (
+                   f"windows {ends} of {outerc}",
+                   lambda out: [c[:, ends] for c in flat(out)]))
         del base1, powers
         nbk = nb - 1
         width = min(2048, nbk)
@@ -525,7 +584,8 @@ def check_kernels(dev, log2: int, int32_rate: float, reps: int):
         del base, idx2, view
 
         # (g) scan_accumulate_mixed_total: fixed-base evaluation, one lane
-        # per scalar of the 2^(log2+1) bucket, one row per window
+        # per scalar of the 2^(log2+1) bucket, one row per window (a part:
+        # the last PART_LANES lanes; the lanes are independent)
         w = w_fixed
         table = rand_packed(gen, cd, outerc << w, dev)
         table[:: 1 << w] = 0        # digit 0 of every window: the identity
@@ -534,12 +594,17 @@ def check_kernels(dev, log2: int, int32_rate: float, reps: int):
         digits += torch.arange(outerc, device=dev)[:, None] << w
         idx2 = (digits << 1).to(torch.int32)[None]
         live = int((table[digits.reshape(-1)] != 0).any(1).sum())
+        pl = min(PART_LANES, 2 * n)
         record("scan_accumulate_mixed_total", g, [1, outerc, 2 * n],
                lambda: kernels.scan_accumulate_mixed_total(g, table, idx2),
-               lambda: _total_plain_sliced(g, table, idx2),
+               lambda: _total_plain_sliced(
+                   g, table, idx2 if whole else idx2[:, :, -pl:]),
                table.numel() * 4 + idx2.numel() * 4
                + 3 * cd * ELEM_BYTES * 2 * n,
-               MONT_MULS["mixed", cd] * MADS_PER_MONT_MUL * live)
+               MONT_MULS["mixed", cd] * MADS_PER_MONT_MUL * live,
+               part=None if whole else (
+                   f"lanes {2 * n - pl}..{2 * n - 1} of {2 * n}",
+                   lambda out: [c[..., -pl:] for c in flat(out)]))
         del table, digits, idx2
 
         # (h) scan_accumulate: the unpacked prove's Pippenger, all windows
@@ -564,7 +629,7 @@ def check_kernels(dev, log2: int, int32_rate: float, reps: int):
     # length), at the reference experiment's width and at the packed G1
     # and G2 point rows; the library call is torch.index_select
     rows_g = 2 * n
-    for width in (128, 16, 32):
+    for width in (128, 16, 32) if curve == kernels.GATHER_CURVE else ():
         table = torch.randint(-2**31, 2**31, (rows_g, width), dtype=torch.int64,
                               device=dev, generator=gen).to(torch.int32)
         idx = torch.randperm(rows_g, device=dev, generator=gen).to(torch.int32)
@@ -639,37 +704,50 @@ def jac_leaf(point):
 # phase: the main path
 # ---------------------------------------------------------------------------
 
-def drive(dev, name: str, fn, required=None):
+# launches per path, curve and kernel (``drive``)
+CURVE_COUNTS = {}
+
+
+def drive(dev, name: str, fn, required=None, curve=None):
     """Run one path with the launch counts and the peak-memory mark set
-    to 0 just before it; returns (its result, its launch counts).  Fails if
-    a kernel the path is built on (``required``, by default REQUIRED[name])
-    was never launched."""
+    to 0 just before it; returns (its result, its launch counts) and keeps
+    its counts per curve in CURVE_COUNTS.  Fails if a kernel the path is
+    built on (``required``, by default REQUIRED[name]) was never launched,
+    or, where ``curve`` is given, never launched with that curve's
+    operands."""
     torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     kernels.reset_launch_counts()
     out = fn()
     torch.cuda.synchronize(dev)
     launches = dict(kernels.LAUNCHES)
+    CURVE_COUNTS[name] = {c: dict(v) for c, v in kernels.CURVE_LAUNCHES.items()}
     required = REQUIRED[name] if required is None else required
-    idle = sorted(k for k in required if launches[k] == 0)
+    idle = sorted(k for k in required if launches[k] == 0
+                  or (curve and CURVE_COUNTS[name][curve][k] == 0))
     if idle:
-        raise SystemExit(f"kernels never launched on the {name} path: {idle}")
+        raise SystemExit(f"kernels never launched on the {name} path"
+                         f"{' with ' + curve + ' operands' if curve else ''}:"
+                         f" {idle}")
     return out, launches
 
 
 def check_proof(name, crs, primary, proof, want, stages, extra, launches,
-                dev):
+                dev, curve=None):
     """Verify, reject a tampered input, compare with the packed path's
-    proof; emit the path line.  Fails on any wrong result."""
+    proof; emit the path line.  Fails on any wrong result.  ``curve``: a
+    curve bundle (default BN254a)."""
+    cv = curve
     t0 = time.perf_counter()
-    accepted = verifier.verify(crs.verification_key, primary, proof)
+    accepted = verifier.verify(crs.verification_key, primary, proof, curve=cv)
     stages["verify"] = time.perf_counter() - t0
     bad = list(primary)
-    bad[1] = (bad[1] + 1) % FR.p
-    rejected = not verifier.verify(crs.verification_key, bad, proof)
-    on_curve = (host_curve.g1_is_on_curve(proof.a)
-                and host_curve.g2_is_on_curve(proof.b)
-                and host_curve.g1_is_on_curve(proof.c))
+    bad[1] = (bad[1] + 1) % (FR.p if cv is None else cv.fr.p)
+    rejected = not verifier.verify(crs.verification_key, bad, proof, curve=cv)
+    g1, g2 = ((host_curve.g1_is_on_curve, host_curve.g2_is_on_curve)
+              if cv is None else
+              (cv.g1.host.is_on_curve, cv.g2.host.is_on_curve))
+    on_curve = g1(proof.a) and g2(proof.b) and g1(proof.c)
     equal = want is None or (proof.a, proof.b, proof.c) == (
         want.a, want.b, want.c)
     out = {"name": name, **extra, "verify": accepted,
@@ -765,6 +843,58 @@ def run_paths(dev, log2: int):
     return counts, (crs, primary, aux)
 
 
+def run_bn254b(dev, log2: int):
+    """The BN254b path at 2^log2 constraints: construct -> setup -> packed
+    prove, then the same CRS unpacked in memory (``msm.packed_to_points``)
+    and proved through the sort-based Pippenger (kernel h), all in one
+    drive; both proofs must verify and be equal, a tampered input must be
+    rejected.  Every kernel must launch with BN254b operands.  Returns the
+    launch counts."""
+    ni = 3
+    cv = bn254b()
+
+    def path():
+        stages, setup_stages, prove_stages, uprove_stages = {}, {}, {}, {}
+        t0 = time.perf_counter()
+        r1cs, primary, aux = construct.serial_construct(
+            (1 << log2) - ni, ni, seed=5, spec=cv.fr, device=dev)
+        torch.cuda.synchronize(dev)
+        stages["construct"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        crs = setup.setup(r1cs, seed=6, curve=cv, stage_seconds=setup_stages)
+        stages["setup"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        proof = prover.prove(crs.proving_key, primary, aux, seed=7, curve=cv,
+                             stage_seconds=prove_stages)
+        stages["prove"] = time.perf_counter() - t0
+        pk = crs.proving_key
+        t0 = time.perf_counter()
+        upk = dataclasses.replace(pk, packed=False, **{
+            q: msm.packed_to_points(cv.g2 if q == "query_b_g2" else cv.g1,
+                                    getattr(pk, q))
+            for q in QUERIES})
+        torch.cuda.synchronize(dev)
+        stages["unpack"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        uproof = prover.prove(upk, primary, aux, seed=7, curve=cv,
+                              stage_seconds=uprove_stages)
+        stages["prove_unpacked"] = time.perf_counter() - t0
+        return (crs, primary, proof, uproof, stages,
+                {"setup_seconds": setup_stages, "prove_seconds": prove_stages,
+                 "prove_unpacked_seconds": uprove_stages,
+                 "query_rows": int(pk.query_a.shape[0])})
+
+    (crs, primary, proof, uproof, stages, extra), launches = drive(
+        dev, "bn254b", path, curve="bn254b")
+    sizes = {"constraints": (1 << log2) - ni, "inputs": ni, "curve": "bn254b",
+             "domain": 1 << log2,
+             "unpacked_proof_equals_packed": (uproof.a, uproof.b, uproof.c)
+             == (proof.a, proof.b, proof.c)}
+    check_proof("bn254b", crs, primary, uproof, proof, stages,
+                {**sizes, **extra}, launches, dev, curve=cv)
+    return launches
+
+
 def run_gather(dev, log2: int):
     """The port's gather experiment over 2^(log2+1) rows, as its command
     line runs it (it prints its two lines).  Returns its launch counts."""
@@ -797,7 +927,7 @@ def run_profiler(dev, log2: int):
             t0 = time.perf_counter()
             rc, counts[name] = drive(
                 dev, name, lambda: profiler.main(argv, events_dir=events),
-                required)
+                required, PROFILER_CURVES.get(app))
             seconds = time.perf_counter() - t0
             if rc != 0:
                 raise SystemExit(f"{name} returned {rc}")
@@ -896,25 +1026,51 @@ def run_oracle(dev, n: int):
     want = msm.pippenger_host(g1, host_scalars, host_pts)
     ok = (got == want and all(host_curve.g1_is_on_curve(p) for p in host_pts))
     ok_unpacked = got_unpacked == want
-    emit({"oracle": {"msm": ["pippenger_msm_packed G1", "pippenger_msm G1"],
+    equal = [ok, ok_unpacked]
+    # BN254b: a packed MSM on each group against its python-int arithmetic
+    cv = bn254b()
+    for grp in (cv.g1, cv.g2):
+        base = grp.point_to_device(
+            grp.host.mul(grp.generator_affine, rng.randrange(1, cv.fr.p)), dev)
+        pts = msm.fixed_base_msm(grp, base, rand_field(gen, (n,), dev))
+        scalars = rand_field(gen, (n,), dev)
+        scalars[:, 0] = 0
+        got = grp.points_to_host(msm._map_coords(
+            msm.pippenger_msm_packed(grp, msm.points_to_packed(grp, pts),
+                                     scalars, lanes=lanes),
+            lambda c: c[..., None]))[0]
+        host_pts = grp.points_to_host(pts)
+        want = msm.pippenger_host(grp, words_to_ints(scalars.cpu().numpy()),
+                                  host_pts)
+        equal.append(got == want
+                     and all(grp.host.is_on_curve(p) for p in host_pts))
+    emit({"oracle": {"msm": ["pippenger_msm_packed G1", "pippenger_msm G1",
+                             "pippenger_msm_packed bn254b-G1",
+                             "pippenger_msm_packed bn254b-G2"],
                      "n": n, "lanes": lanes,
-                     "against": "msm.pippenger_host over host_curve ints",
-                     "equal": [ok, ok_unpacked]}})
-    if not (ok and ok_unpacked):
+                     "against": "msm.pippenger_host over host ints (BN254a: "
+                                "host_curve; BN254b: the bundle's host ops)",
+                     "equal": equal}})
+    if not all(equal):
         raise SystemExit("an MSM disagrees with the host oracle")
 
 
 def ptxas_summary():
-    """Registers and spills per kernel, from the build's ptxas output."""
+    """Registers and spills per kernel, from each curve's build's ptxas
+    output, with the curve and source it was compiled from."""
     out, cur = [], None
-    for line in kernels.compile_log().splitlines():
+    lines = [(curve, src, line) for curve in kernels.CURVES
+             for src, text in kernels.compile_log(curve).items()
+             for line in text.splitlines()]
+    for curve, src, line in lines:
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             # mangled name less its anonymous-namespace prefix and arguments
             name = re.sub(r"^_ZN\d+_GLOBAL__N__\w+_cu_[0-9a-f]{8}\d\d", "",
                           m.group(1)).split("Ev")[0]
-            cur = {"entry": name, "registers": None, "spill_stores": 0,
-                   "spill_loads": 0}
+            cur = {"curve": curve, "source": src, "entry": name,
+                   "registers": None,
+                   "spill_stores": 0, "spill_loads": 0}
             out.append(cur)
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and cur:       # the entry and the functions it calls
@@ -924,6 +1080,18 @@ def ptxas_summary():
         if m and cur:
             cur["registers"] = int(m.group(1))
     return out
+
+
+def unit_seconds(curve):
+    """Seconds from the start of a curve's build in this process to the
+    last write of each source's compiler log (None where the library was
+    already built)."""
+    if curve not in kernels.build_seconds:
+        return None
+    d = kernels.build(curve).parent
+    t0 = (d / "constants.cuh").stat().st_mtime
+    return {src: (d / (src[:-3] + ".log")).stat().st_mtime - t0
+            for src in kernels.sources(curve)}
 
 
 def main() -> int:
@@ -940,7 +1108,8 @@ def main() -> int:
         return 1
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
-    kernels.lib()                               # build + load
+    with concurrent.futures.ThreadPoolExecutor() as pool:   # build + load
+        list(pool.map(kernels.lib, kernels.CURVES))
     card = smi("name,power.limit")
     sm_mhz = float(smi("clocks.max.sm").split()[0])
     int32_rate = SM_COUNT * INT32_LANES_PER_SM * sm_mhz * 1e6
@@ -950,6 +1119,7 @@ def main() -> int:
         "clocks_max_sm_mhz": sm_mhz,
         "int32_mads_per_s_derived": int32_rate,
         "build_seconds": kernels.build_seconds,
+        "build_unit_seconds": {c: unit_seconds(c) for c in kernels.CURVES},
         "ptxas": ptxas_summary()}})
 
     phases = {"build": time.perf_counter() - t_start}
@@ -963,8 +1133,15 @@ def main() -> int:
     with phase("kernels"):
         records = check_kernels(dev, args.log2, int32_rate, reps=5)
         torch.cuda.empty_cache()
+    with phase("kernels bn254b"):
+        records += check_kernels(dev, args.log2, int32_rate, reps=5,
+                                 curve="bn254b", whole=False)
+        torch.cuda.empty_cache()
     with phase("paths"):
         counts, proving_inputs = run_paths(dev, args.log2)
+    with phase("path bn254b"):
+        counts["bn254b"] = run_bn254b(dev, args.log2)
+        torch.cuda.empty_cache()
     with phase("profile and oracle"):
         profile_prove(dev, *proving_inputs)
         del proving_inputs
@@ -974,10 +1151,11 @@ def main() -> int:
         check_gather_bounds()
     with phase("profiler apps"):
         counts.update(run_profiler(dev, args.log2))
-    for r in records:
-        r["launches_per_path"] = {p: c[r["name"]] for p, c in counts.items()}
+    for r in records:              # the launches with the record's curve
+        r["launches_per_path"] = {
+            p: CURVE_COUNTS[p][r["curve"]][r["name"]] for p in counts}
         r["launches"] = sum(r["launches_per_path"].values())
-    emit({"launches": counts})
+    emit({"launches": counts, "by_curve": CURVE_COUNTS})
     emit({"kernels": records})
     print(card, flush=True)
     emit({"total_seconds": time.perf_counter() - t_start,

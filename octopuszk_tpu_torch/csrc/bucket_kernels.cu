@@ -24,6 +24,7 @@
 //   H100 (PERF.md).
 #include <cuda_runtime.h>
 #include "grid.cuh"
+#include "curve.cuh"
 
 namespace {
 

@@ -30,6 +30,7 @@
 // for the 1 to 15 points that chains double; it is not worth it here.
 #include <cuda_runtime.h>
 #include "rcb.cuh"
+#include "curve.cuh"
 
 namespace {
 

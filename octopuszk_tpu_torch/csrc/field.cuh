@@ -4,9 +4,11 @@
 // canonical value in [0, p), so results equal the plain PyTorch versions
 // (ops/kernels.py) and the JAX reference bit for bit after a repack.
 //
-// The modulus is a template parameter (FrMod, FqMod).  Its constants come
-// from constants.cuh, which ops/kernels.py writes from fields/spec.py at
-// build time, so the two cannot drift apart.
+// The modulus is a template parameter: FrMod, FqMod (BN254a), FrbMod,
+// FqbMod (BN254b).  Its constants come from constants.cuh, which
+// ops/kernels.py writes from the curves' specs at build time, so the two
+// cannot drift apart; it refuses a modulus of 2^254 or more, so 2p <
+// 2^255 holds below.
 #pragma once
 #include <cstddef>
 #include <cstdint>
@@ -134,29 +136,50 @@ __host__ __device__ __forceinline__ uint32_t madc_hi(uint32_t a, uint32_t b,
 #undef OZ_CC_ASM3
 }  // namespace cc
 
-struct FrMod {
-  static constexpr uint32_t N0INV = FR_N0INV;
-  __device__ __forceinline__ static uint32_t p(int i) {
-    constexpr uint32_t v[8] = FR_P_WORDS;
-    return v[i];
+// A modulus: its words, one in Montgomery form (R mod p) and -p^-1 mod
+// 2^32.  A curve's Fq modulus carries the curve's traits as well: kNr, the
+// Fp2 non-residue (u^2 = kNr, fp2.cuh); kB3, 3 b on G1; b3_c0 / b3_c1, the
+// words of 3 b on the G2 twist (rcb.cuh).
+#define OZ_MODULUS(TAG)                                     \
+  static constexpr uint32_t N0INV = TAG##_N0INV;            \
+  __device__ __forceinline__ static uint32_t p(int i) {     \
+    constexpr uint32_t v[8] = TAG##_P_WORDS;                \
+    return v[i];                                            \
+  }                                                         \
+  __device__ __forceinline__ static uint32_t one(int i) {   \
+    constexpr uint32_t v[8] = TAG##_ONE_WORDS;              \
+    return v[i];                                            \
   }
-  __device__ __forceinline__ static uint32_t one(int i) {
-    constexpr uint32_t v[8] = FR_ONE_WORDS;
-    return v[i];
+#define OZ_CURVE_TRAITS(TAG)                                \
+  static constexpr int kNr = TAG##_NR;                      \
+  static constexpr unsigned kB3 = TAG##_G1_B3;              \
+  __device__ __forceinline__ static uint32_t b3_c0(int i) { \
+    constexpr uint32_t v[8] = TAG##_G2_B3_C0_WORDS;         \
+    return v[i];                                            \
+  }                                                         \
+  __device__ __forceinline__ static uint32_t b3_c1(int i) { \
+    constexpr uint32_t v[8] = TAG##_G2_B3_C1_WORDS;         \
+    return v[i];                                            \
   }
-};
 
-struct FqMod {
-  static constexpr uint32_t N0INV = FQ_N0INV;
-  __device__ __forceinline__ static uint32_t p(int i) {
-    constexpr uint32_t v[8] = FQ_P_WORDS;
-    return v[i];
-  }
-  __device__ __forceinline__ static uint32_t one(int i) {
-    constexpr uint32_t v[8] = FQ_ONE_WORDS;
-    return v[i];
-  }
+// BN254a
+struct FrMod {
+  OZ_MODULUS(FR)
 };
+struct FqMod {
+  OZ_MODULUS(FQ)
+  OZ_CURVE_TRAITS(FQ)
+};
+// BN254b
+struct FrbMod {
+  OZ_MODULUS(FRB)
+};
+struct FqbMod {
+  OZ_MODULUS(FQB)
+  OZ_CURVE_TRAITS(FQB)
+};
+#undef OZ_MODULUS
+#undef OZ_CURVE_TRAITS
 
 template <class M>
 struct Fp {
@@ -247,6 +270,21 @@ __device__ __forceinline__ Fp<M> sub(const Fp<M>& a, const Fp<M>& b) {
   for (int k = 1; k < 7; k++) r.v[k] = cc::addc_cc(d.v[k], M::p(k) & mask);
   r.v[7] = cc::addc(d.v[7], M::p(7) & mask);
   return r;
+}
+
+// k * a for a constant k > 0 by the double-and-add chain of fields/fp.py
+// mul_small, from the low bit: the running double is added where a bit
+// of k is set (b3 = 9: a + 8a; 39: a + 2a + 4a + 32a)
+template <unsigned K, class M>
+__device__ __forceinline__ Fp<M> mul_small(const Fp<M>& a) {
+  static_assert(K > 0, "mul_small needs k > 0");
+  if constexpr (K == 1) {
+    return a;
+  } else if constexpr (K & 1u) {
+    return add(a, mul_small<K / 2>(dbl(a)));
+  } else {
+    return mul_small<K / 2>(dbl(a));
+  }
 }
 
 template <class M>

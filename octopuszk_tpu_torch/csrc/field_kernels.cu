@@ -30,7 +30,7 @@
 //   the two (PERF.md).  The same positions hold the prefix and then the
 //   inverse, so it needs no scratch.
 #include <cuda_runtime.h>
-#include "field.cuh"
+#include "curve.cuh"
 
 namespace {
 
@@ -103,7 +103,8 @@ inline unsigned blocks_for(size_t n, int threads = kThreads) {
 
 }  // namespace
 
-// field: 0 = Fr, 1 = Fq.  Each function returns cudaGetLastError().
+// field: 0 = the unit's curve's Fr, 1 = its Fq (curve.cuh).  Each
+// function returns cudaGetLastError().
 
 extern "C" int oz_butterfly(int field, int dif, const void* a, const void* b,
                             const void* w, void* o0, void* o1, long long n,
@@ -117,11 +118,11 @@ extern "C" int oz_butterfly(int field, int dif, const void* a, const void* b,
   uint32_t* p1 = (uint32_t*)o1;
   const unsigned g = blocks_for((size_t)n);
   if (field == 0) {
-    if (dif) butterfly_kernel<FrMod, true><<<g, kThreads, 0, s>>>(pa, pb, pw, p0, p1, (size_t)n);
-    else butterfly_kernel<FrMod, false><<<g, kThreads, 0, s>>>(pa, pb, pw, p0, p1, (size_t)n);
+    if (dif) butterfly_kernel<CurveFr, true><<<g, kThreads, 0, s>>>(pa, pb, pw, p0, p1, (size_t)n);
+    else butterfly_kernel<CurveFr, false><<<g, kThreads, 0, s>>>(pa, pb, pw, p0, p1, (size_t)n);
   } else {
-    if (dif) butterfly_kernel<FqMod, true><<<g, kThreads, 0, s>>>(pa, pb, pw, p0, p1, (size_t)n);
-    else butterfly_kernel<FqMod, false><<<g, kThreads, 0, s>>>(pa, pb, pw, p0, p1, (size_t)n);
+    if (dif) butterfly_kernel<CurveFq, true><<<g, kThreads, 0, s>>>(pa, pb, pw, p0, p1, (size_t)n);
+    else butterfly_kernel<CurveFq, false><<<g, kThreads, 0, s>>>(pa, pb, pw, p0, p1, (size_t)n);
   }
   return (int)cudaGetLastError();
 }
@@ -132,9 +133,9 @@ extern "C" int oz_mont_mul(int field, const void* a, const void* b, void* out,
   cudaStream_t s = (cudaStream_t)stream;
   const unsigned g = blocks_for((size_t)n);
   if (field == 0)
-    mont_mul_kernel<FrMod><<<g, kThreads, 0, s>>>((const uint32_t*)a, (const uint32_t*)b, (uint32_t*)out, (size_t)n);
+    mont_mul_kernel<CurveFr><<<g, kThreads, 0, s>>>((const uint32_t*)a, (const uint32_t*)b, (uint32_t*)out, (size_t)n);
   else
-    mont_mul_kernel<FqMod><<<g, kThreads, 0, s>>>((const uint32_t*)a, (const uint32_t*)b, (uint32_t*)out, (size_t)n);
+    mont_mul_kernel<CurveFq><<<g, kThreads, 0, s>>>((const uint32_t*)a, (const uint32_t*)b, (uint32_t*)out, (size_t)n);
   return (int)cudaGetLastError();
 }
 
@@ -145,9 +146,9 @@ extern "C" int oz_mul_sub(int field, const void* a, const void* b,
   cudaStream_t s = (cudaStream_t)stream;
   const unsigned g = blocks_for((size_t)n);
   if (field == 0)
-    mul_sub_kernel<FrMod><<<g, kThreads, 0, s>>>((const uint32_t*)a, (const uint32_t*)b, (const uint32_t*)c, (uint32_t*)out, (size_t)n);
+    mul_sub_kernel<CurveFr><<<g, kThreads, 0, s>>>((const uint32_t*)a, (const uint32_t*)b, (const uint32_t*)c, (uint32_t*)out, (size_t)n);
   else
-    mul_sub_kernel<FqMod><<<g, kThreads, 0, s>>>((const uint32_t*)a, (const uint32_t*)b, (const uint32_t*)c, (uint32_t*)out, (size_t)n);
+    mul_sub_kernel<CurveFq><<<g, kThreads, 0, s>>>((const uint32_t*)a, (const uint32_t*)b, (const uint32_t*)c, (uint32_t*)out, (size_t)n);
   return (int)cudaGetLastError();
 }
 
@@ -162,9 +163,9 @@ extern "C" int oz_mont_pow(int field, const void* a, void* out, long long n,
   ex.top = top;
   const unsigned g = blocks_for((size_t)n, kChainThreads);
   if (field == 0)
-    mont_pow_kernel<FrMod><<<g, kChainThreads, 0, s>>>((const uint32_t*)a, (uint32_t*)out, (size_t)n, ex);
+    mont_pow_kernel<CurveFr><<<g, kChainThreads, 0, s>>>((const uint32_t*)a, (uint32_t*)out, (size_t)n, ex);
   else
-    mont_pow_kernel<FqMod><<<g, kChainThreads, 0, s>>>((const uint32_t*)a, (uint32_t*)out, (size_t)n, ex);
+    mont_pow_kernel<CurveFq><<<g, kChainThreads, 0, s>>>((const uint32_t*)a, (uint32_t*)out, (size_t)n, ex);
   return (int)cudaGetLastError();
 }
 
@@ -180,8 +181,8 @@ extern "C" int oz_batch_inv_rows(int field, const void* a, void* out,
   ex.top = top;
   const unsigned g = blocks_for((size_t)lanes, kChainThreads);
   if (field == 0)
-    batch_inv_rows_kernel<FrMod><<<g, kChainThreads, 0, s>>>((const uint32_t*)a, (uint32_t*)out, (size_t)n, (size_t)lanes, ex);
+    batch_inv_rows_kernel<CurveFr><<<g, kChainThreads, 0, s>>>((const uint32_t*)a, (uint32_t*)out, (size_t)n, (size_t)lanes, ex);
   else
-    batch_inv_rows_kernel<FqMod><<<g, kChainThreads, 0, s>>>((const uint32_t*)a, (uint32_t*)out, (size_t)n, (size_t)lanes, ex);
+    batch_inv_rows_kernel<CurveFq><<<g, kChainThreads, 0, s>>>((const uint32_t*)a, (uint32_t*)out, (size_t)n, (size_t)lanes, ex);
   return (int)cudaGetLastError();
 }

@@ -29,6 +29,7 @@
 // smaller), two butterflies a thread a stage at L = 2^10.
 #include <cuda_runtime.h>
 #include "ntt.cuh"
+#include "curve.cuh"
 
 namespace {
 
@@ -74,11 +75,11 @@ NttView view(const void* p, const long long* st) {
 
 }  // namespace
 
-// field: 0 = Fr, 1 = Fq.  x, pre, post: the operands (pre, post may be
-// null), each with four element strides (word, l, outer batch, inner
-// batch) in ``strides`` (x, pre, post in turn); tw: [8, L/2]; out: [8, L,
-// batch]; the batch entry b is (b / inner, b % inner).  Returns
-// cudaGetLastError().
+// field: 0 = the unit's curve's Fr, 1 = its Fq (curve.cuh).  x, pre,
+// post: the operands (pre, post may be null), each with four element
+// strides (word, l, outer batch, inner batch) in ``strides`` (x, pre, post
+// in turn); tw: [8, L/2]; out: [8, L, batch]; the batch entry b is (b /
+// inner, b % inner).  Returns cudaGetLastError().
 extern "C" int oz_ntt_block(int field, int dif, const void* x,
                             const void* pre, const void* post,
                             const long long* strides, const void* tw,
@@ -98,6 +99,6 @@ extern "C" int oz_ntt_block(int field, int dif, const void* x,
   a.inner = inner;
   cudaStream_t s = (cudaStream_t)stream;
   if (field == 0)
-    return dif ? launch<FrMod, true>(a, s) : launch<FrMod, false>(a, s);
-  return dif ? launch<FqMod, true>(a, s) : launch<FqMod, false>(a, s);
+    return dif ? launch<CurveFr, true>(a, s) : launch<CurveFr, false>(a, s);
+  return dif ? launch<CurveFq, true>(a, s) : launch<CurveFq, false>(a, s);
 }

@@ -17,6 +17,7 @@
 // 132 SMs idle and ran 9x (G1) and 13x (G2) slower on the H100 (PERF.md).
 #include <cuda_runtime.h>
 #include "grid.cuh"
+#include "curve.cuh"
 
 namespace {
 

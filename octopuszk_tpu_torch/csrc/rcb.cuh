@@ -1,41 +1,43 @@
 // Complete projective curve arithmetic for a = 0 curves (Renes, Costello,
 // Batina 2015, algorithms 7, 8, 9), templated on the coordinate field:
-// Fp<FqMod> for G1, Fp2<FqMod> for G2.  The identity is (0, 1, 0).  The
-// formulas are those of curves/group_ops.py, term for term, so the
+// Fp<M> for G1, Fp2<M> for G2, M the curve's Fq modulus (FqMod for BN254a,
+// FqbMod for BN254b), whose traits give b3 = 3 b.  The identity is (0, 1,
+// 0).  The formulas are those of curves/group_ops.py, term for term, so the
 // projective coordinates that come out are the same words.
 #pragma once
 #include "fp2.cuh"
 
-typedef Fp<FqMod> G1Coord;
-typedef Fp2<FqMod> G2Coord;
-
-// b3 = 3 b: 9 on G1 (an addition chain), 3 * (3 / (9 + u)) on the G2 twist
-__device__ __forceinline__ G1Coord mul_b3(const G1Coord& a) {
-  const G1Coord a8 = dbl(dbl(dbl(a)));
-  return add(a, a8);
+// b3 = 3 b: on G1 an addition chain (9 on BN254a, 39 on BN254b), on the G2
+// twist a product by the constant 3 b / xi
+template <class M>
+__device__ __forceinline__ Fp<M> mul_b3(const Fp<M>& a) {
+  return mul_small<M::kB3>(a);
 }
 
-__device__ __forceinline__ G2Coord mul_b3(const G2Coord& a) {
-  constexpr uint32_t c0[8] = G2_B3_C0_WORDS;
-  constexpr uint32_t c1[8] = G2_B3_C1_WORDS;
-  G2Coord b3;
+template <class M>
+__device__ __forceinline__ Fp2<M> mul_b3(const Fp2<M>& a) {
+  Fp2<M> b3;
 #pragma unroll
   for (int k = 0; k < 8; k++) {
-    b3.c0.v[k] = c0[k];
-    b3.c1.v[k] = c1[k];
+    b3.c0.v[k] = M::b3_c0(k);
+    b3.c1.v[k] = M::b3_c1(k);
   }
   return mul(a, b3);
 }
 
-__device__ __forceinline__ void coord_zero(G1Coord& c) { c = fp_zero<FqMod>(); }
-__device__ __forceinline__ void coord_one(G1Coord& c) { c = fp_one<FqMod>(); }
-__device__ __forceinline__ void coord_zero(G2Coord& c) {
-  c.c0 = fp_zero<FqMod>();
-  c.c1 = fp_zero<FqMod>();
+template <class M>
+__device__ __forceinline__ void coord_zero(Fp<M>& c) { c = fp_zero<M>(); }
+template <class M>
+__device__ __forceinline__ void coord_one(Fp<M>& c) { c = fp_one<M>(); }
+template <class M>
+__device__ __forceinline__ void coord_zero(Fp2<M>& c) {
+  c.c0 = fp_zero<M>();
+  c.c1 = fp_zero<M>();
 }
-__device__ __forceinline__ void coord_one(G2Coord& c) {
-  c.c0 = fp_one<FqMod>();
-  c.c1 = fp_zero<FqMod>();
+template <class M>
+__device__ __forceinline__ void coord_one(Fp2<M>& c) {
+  c.c0 = fp_one<M>();
+  c.c1 = fp_zero<M>();
 }
 
 template <class C>
@@ -133,25 +135,29 @@ inline PointPtrs make_ptrs(const unsigned long long* addrs, int count) {
   return p;
 }
 
-__device__ __forceinline__ void load_coord(G1Coord& c, const PointPtrs& p,
+template <class M>
+__device__ __forceinline__ void load_coord(Fp<M>& c, const PointPtrs& p,
                                            int ci, size_t n, size_t i) {
-  c = fp_load<FqMod>(p.c[ci], n, i);
+  c = fp_load<M>(p.c[ci], n, i);
 }
-__device__ __forceinline__ void load_coord(G2Coord& c, const PointPtrs& p,
+template <class M>
+__device__ __forceinline__ void load_coord(Fp2<M>& c, const PointPtrs& p,
                                            int ci, size_t n, size_t i) {
-  c.c0 = fp_load<FqMod>(p.c[2 * ci], n, i);
-  c.c1 = fp_load<FqMod>(p.c[2 * ci + 1], n, i);
+  c.c0 = fp_load<M>(p.c[2 * ci], n, i);
+  c.c1 = fp_load<M>(p.c[2 * ci + 1], n, i);
 }
-__device__ __forceinline__ void store_coord(const G1Coord& c,
+template <class M>
+__device__ __forceinline__ void store_coord(const Fp<M>& c,
                                             const PointPtrs& p, int ci,
                                             size_t n, size_t i) {
-  fp_store<FqMod>(p.c[ci], n, i, c);
+  fp_store<M>(p.c[ci], n, i, c);
 }
-__device__ __forceinline__ void store_coord(const G2Coord& c,
+template <class M>
+__device__ __forceinline__ void store_coord(const Fp2<M>& c,
                                             const PointPtrs& p, int ci,
                                             size_t n, size_t i) {
-  fp_store<FqMod>(p.c[2 * ci], n, i, c.c0);
-  fp_store<FqMod>(p.c[2 * ci + 1], n, i, c.c1);
+  fp_store<M>(p.c[2 * ci], n, i, c.c0);
+  fp_store<M>(p.c[2 * ci + 1], n, i, c.c1);
 }
 
 template <class C>

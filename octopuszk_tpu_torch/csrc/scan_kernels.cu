@@ -43,7 +43,8 @@
 //   registers for 12 warps, the G2 mixed step spills 0.8-1 KB a row to
 //   local memory and runs 1.5x slower on the H100 (PERF.md), so the wider
 //   register file wins over occupancy; rcb.cuh orders the mixed add so
-//   that few temporaries live at once.
+//   that few temporaries live at once.  BN254b's G2 instance (Fp2 products
+//   by nr = -5) spills 64-136 B at the same bound (PERF.md).
 // * The gather's latency: each row is copied into shared memory by
 //   cp.async one row ahead (two stages per thread, 16-byte pieces), and
 //   its index two rows ahead, so the dependent loads overlap the row
@@ -55,6 +56,7 @@
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include "rcb.cuh"
+#include "curve.cuh"
 
 namespace {
 
@@ -64,12 +66,12 @@ constexpr int kThreads = 128;
 // register allocator to allow: 16 warps on G1, 8 on G2
 template <class C>
 struct Occupancy;
-template <>
-struct Occupancy<G1Coord> {
+template <class M>
+struct Occupancy<Fp<M>> {
   static constexpr int kMinBlocks = 4;
 };
-template <>
-struct Occupancy<G2Coord> {
+template <class M>
+struct Occupancy<Fp2<M>> {
   static constexpr int kMinBlocks = 2;
 };
 
@@ -78,32 +80,35 @@ struct OutPtrs {
 };
 
 // 8 words of one coordinate component, contiguous in a row
-__device__ __forceinline__ Fp<FqMod> load_row8(const uint32_t* row) {
+template <class M>
+__device__ __forceinline__ Fp<M> load_row8(const uint32_t* row) {
   const uint4 lo = *reinterpret_cast<const uint4*>(row);
   const uint4 hi = *reinterpret_cast<const uint4*>(row + 4);
-  Fp<FqMod> r;
+  Fp<M> r;
   r.v[0] = lo.x; r.v[1] = lo.y; r.v[2] = lo.z; r.v[3] = lo.w;
   r.v[4] = hi.x; r.v[5] = hi.y; r.v[6] = hi.z; r.v[7] = hi.w;
   return r;
 }
 
-__device__ __forceinline__ void load_row(const uint32_t* row, G1Coord& c) {
-  c = load_row8(row);
+template <class M>
+__device__ __forceinline__ void load_row(const uint32_t* row, Fp<M>& c) {
+  c = load_row8<M>(row);
 }
-__device__ __forceinline__ void load_row(const uint32_t* row, G2Coord& c) {
-  c.c0 = load_row8(row);
-  c.c1 = load_row8(row + 8);
+template <class M>
+__device__ __forceinline__ void load_row(const uint32_t* row, Fp2<M>& c) {
+  c.c0 = load_row8<M>(row);
+  c.c1 = load_row8<M>(row + 8);
 }
 
 // words of one coordinate in a row
 template <class C>
 struct CoordWords;
-template <>
-struct CoordWords<G1Coord> {
+template <class M>
+struct CoordWords<Fp<M>> {
   static constexpr int kValue = 8;
 };
-template <>
-struct CoordWords<G2Coord> {
+template <class M>
+struct CoordWords<Fp2<M>> {
   static constexpr int kValue = 16;
 };
 
@@ -145,14 +150,16 @@ struct FullStep {
   }
 };
 
-__device__ __forceinline__ void store_at(const G1Coord& c, const OutPtrs& o,
+template <class M>
+__device__ __forceinline__ void store_at(const Fp<M>& c, const OutPtrs& o,
                                          int ci, size_t stride, size_t off) {
-  fp_store<FqMod>(o.c[ci], stride, off, c);
+  fp_store<M>(o.c[ci], stride, off, c);
 }
-__device__ __forceinline__ void store_at(const G2Coord& c, const OutPtrs& o,
+template <class M>
+__device__ __forceinline__ void store_at(const Fp2<M>& c, const OutPtrs& o,
                                          int ci, size_t stride, size_t off) {
-  fp_store<FqMod>(o.c[2 * ci], stride, off, c.c0);
-  fp_store<FqMod>(o.c[2 * ci + 1], stride, off, c.c1);
+  fp_store<M>(o.c[2 * ci], stride, off, c.c0);
+  fp_store<M>(o.c[2 * ci + 1], stride, off, c.c1);
 }
 
 template <class C>

@@ -17,6 +17,7 @@
 // (one accumulator per MSM: 15 x (17 doublings + 1 add)).
 #include <cuda_runtime.h>
 #include "rcb.cuh"
+#include "curve.cuh"
 
 namespace {
 

@@ -4,7 +4,7 @@ Homogeneous projective points ``(X, Y, Z)`` with the identity at (0, 1, 0),
 using the Renes-Costello-Batina complete addition formulas (ePrint
 2015/1060, algorithms 7-9 for a = 0): one branchless formula correct for
 every input pair: doubling, identity, inverses.  Requires odd group order
-(true for BN254 G1 and the G2 subgroup).
+(true for G1 and the G2 subgroup of BN254a and BN254b).
 
 A point batch is a tuple of three coordinates; a coordinate is an
 ``int32[8, ...]`` word tensor for G1 (Fp) or a pair of them for G2 (Fp2).
@@ -31,9 +31,9 @@ def make_fp_ops(spec: FieldSpec, b3: int = 9, group_name: str = "G1",
                 mul=fp.mont_mul) -> types.SimpleNamespace:
     """Coordinate-field adapter for a base prime field (G1).
 
-    ``b3`` = 3 * coefficientB (BN254a b = 3 -> 9), multiplied in by an
-    addition chain.  ``mul`` is the base-field product (the kernels' plain
-    versions pass the plain CIOS)."""
+    ``b3`` = 3 * coefficientB (BN254a b = 3 -> 9; BN254b b = 13 -> 39),
+    multiplied in by an addition chain.  ``mul`` is the base-field product
+    (the kernels' plain versions pass the plain CIOS)."""
     return types.SimpleNamespace(
         spec=spec,
         group_name=group_name,
@@ -63,16 +63,22 @@ def g2_b3() -> tuple:
     return host_tower.fp2_scalar(b2, 3)
 
 
-def make_fp2_ops(spec: FieldSpec, group_name: str = "G2",
+def make_fp2_ops(spec: FieldSpec, nr: int = -1, b3=None,
+                 group_name: str = "G2",
                  mul=fp.mont_mul) -> types.SimpleNamespace:
-    """Coordinate-field adapter for Fp2 with u^2 = -1 (G2 of BN254a)."""
-    b3 = g2_b3()
+    """Coordinate-field adapter for Fp2 (G2 of a BN curve).
+
+    ``nr``: the Fp2 non-residue (u^2 = nr; BN254a -1, BN254b -5).  ``b3``:
+    3 * the twist's coefficient b as an (c0, c1) pair of host ints; by
+    default BN254a's (``g2_b3``)."""
+    if b3 is None:
+        b3 = g2_b3()
     b3w = (int_to_words(spec.to_mont(b3[0])), int_to_words(spec.to_mont(b3[1])))
 
     def mul_b3(a):
         ones = (1,) * (a[0].dim() - 1)
         cc = tuple(fp.constant(w, ones, a[0].device) for w in b3w)
-        return fp2.mul(spec, a, cc, mul)
+        return fp2.mul(spec, a, cc, nr, mul)
 
     return types.SimpleNamespace(
         spec=spec,
@@ -80,13 +86,13 @@ def make_fp2_ops(spec: FieldSpec, group_name: str = "G2",
         coord_dim=2,
         add=lambda a, b: fp2.add(spec, a, b),
         sub=lambda a, b: fp2.sub(spec, a, b),
-        mul=lambda a, b: fp2.mul(spec, a, b, mul),
-        sqr=lambda a: fp2.sqr(spec, a, mul),
+        mul=lambda a, b: fp2.mul(spec, a, b, nr, mul),
+        sqr=lambda a: fp2.sqr(spec, a, nr, mul),
         neg=lambda a: fp2.neg(spec, a),
         dbl=lambda a: fp2.double(spec, a),
-        inv=lambda a: fp2.inv(spec, a),
+        inv=lambda a: fp2.inv(spec, a, nr),
         mul_b3=mul_b3,
-        binv=lambda a: fp2.batch_inv_rows(spec, a),
+        binv=lambda a: fp2.batch_inv_rows(spec, a, nr=nr),
         is_zero=fp2.is_zero,
         eq=fp2.eq,
         select=fp2.select,

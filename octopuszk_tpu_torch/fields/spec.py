@@ -114,3 +114,22 @@ FQ = FieldSpec(
     two_adicity=1,
     root_of_unity=21888242871839275222246405745257275088696311157297823662689037894645226208582,
 )
+
+
+# BN254b, the reference's second curve (its `zksnark-large` app): both
+# moduli 254-bit, two-adicity 50
+FR_B = FieldSpec(
+    name="bn254b_fr",
+    p=17855808334804902850260923831770255773646114952324966112694569107431857586177,
+    generator=7,
+    two_adicity=50,
+    root_of_unity=17729182186811642101367803457606981491707192560180443271869306861118266354030,
+)
+
+FQ_B = FieldSpec(
+    name="bn254b_fq",
+    p=17855808334804902850260923831770255773779740579862519338010824535856509878273,
+    generator=5,
+    two_adicity=50,
+    root_of_unity=8794480323307618088839840625900989315206881983614277345799820743772850434426,
+)

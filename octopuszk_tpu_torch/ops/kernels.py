@@ -34,16 +34,28 @@ row gather takes rows ``int32[R, W]``).  For
 a tensor on the CPU it evaluates the plain PyTorch version beside it
 (``*_plain``); for a tensor on the card it launches its kernel on the
 current stream, without synchronising, or raises.  There is no fallback and
-no size threshold.  ``LAUNCHES`` counts kernel launches per wrapper.
+no size threshold.  ``CURVE_LAUNCHES`` counts kernel launches per wrapper
+and curve, ``LAUNCHES`` per wrapper.
 
-Build: ``nvcc`` compiles each source for ``sm_90a`` into one shared library
-with a plain C interface under ``build/`` at first use, keyed by a hash of
-the sources and of the constants written from ``fields/spec.py``; the
-library is loaded with ``ctypes``.
+Every kernel but the row gather is one of a curve as well as of a field or
+a group: ``CURVES`` lists the curves of curves/family.py (BN254a, whose
+groups are ``G1`` and ``G2``; BN254b, whose groups are ``bn254b-G1`` and
+``bn254b-G2``).  A field spec or a group name picks its curve's library;
+one that no curve knows raises ``ValueError``.
+
+Build: each curve has a library of its own, built at the first use of the
+curve: ``nvcc`` compiles each source for ``sm_90a`` with the curve's
+definitions (``-DOZ_CURVE_BN254B`` for BN254b, read by csrc/curve.cuh),
+all sources at once, and links a shared library with a plain C interface
+under ``build/``, keyed by a hash of the sources, the curve and the
+constants written from the curves' specs (``constants_header``); it is
+loaded with ``ctypes``.  The row gather, which knows no curve, is built
+into the first curve's library.
 """
 
 from __future__ import annotations
 
+import collections.abc
 import ctypes
 import functools
 import hashlib
@@ -56,16 +68,24 @@ import time
 import numpy as np
 import torch
 
+from octopuszk_tpu_torch.curves import family
 from octopuszk_tpu_torch.fields import fp
-from octopuszk_tpu_torch.fields.spec import FQ, FR, FieldSpec, HALF_BITS, HALF_MASK
+from octopuszk_tpu_torch.fields.spec import FieldSpec, HALF_BITS, HALF_MASK
 from octopuszk_tpu_torch.utils.bigint import NUM_WORDS
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parent.parent.parent / "build"
-SOURCES = ("field_kernels.cu", "ec_kernels.cu", "scan_kernels.cu",
-           "ntt_kernels.cu", "gather_kernels.cu", "table_kernels.cu",
-           "bucket_kernels.cu", "prefix_kernels.cu")
-HEADERS = ("field.cuh", "fp2.cuh", "rcb.cuh", "grid.cuh", "ntt.cuh")
+# curve -> (its bundle in curves/family.py, the tag of its constants in
+# constants.cuh, its nvcc definitions)
+CURVES = {"bn254a": (family.bn254a, "", ()),
+          "bn254b": (family.bn254b, "B", ("-DOZ_CURVE_BN254B",))}
+CURVE_SOURCES = ("field_kernels.cu", "ec_kernels.cu", "scan_kernels.cu",
+                 "ntt_kernels.cu", "table_kernels.cu", "bucket_kernels.cu",
+                 "prefix_kernels.cu")
+# the row gather knows no curve: it is built with the first curve
+GATHER_CURVE = next(iter(CURVES))
+HEADERS = ("field.cuh", "fp2.cuh", "rcb.cuh", "grid.cuh", "ntt.cuh",
+           "curve.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -75,18 +95,49 @@ KERNEL_NAMES = ("butterfly", "mont_mul", "mul_sub", "add_points",
                 "row_gather", "mont_pow", "batch_inv_rows", "window_table",
                 "combine_windows", "lane_row_sums", "tree_sum", "prefix_sum",
                 "ntt_block")
-LAUNCHES = dict.fromkeys(KERNEL_NAMES, 0)
+# launches per curve and wrapper (the row gather's under GATHER_CURVE)
+CURVE_LAUNCHES = {c: dict.fromkeys(KERNEL_NAMES, 0) for c in CURVES}
 
-_FIELD_IDS = {FR.name: 0, FQ.name: 1}
-_GROUP_IDS = {"G1": 1, "G2": 2}
 
-_lib = None
-build_seconds = None        # wall time of this process's nvcc build, if any
+class _Totals(collections.abc.Mapping):
+    """Launches per wrapper, summed over the curves."""
+
+    def __getitem__(self, name):
+        return sum(counts[name] for counts in CURVE_LAUNCHES.values())
+
+    def __iter__(self):
+        return iter(KERNEL_NAMES)
+
+    def __len__(self):
+        return len(KERNEL_NAMES)
+
+
+LAUNCHES = _Totals()
+
+_libs = {}
+build_seconds = {}      # curve -> wall time of this process's build of it
 
 
 def reset_launch_counts():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in CURVE_LAUNCHES.values():
+        for k in counts:
+            counts[k] = 0
+
+
+@functools.cache
+def _fields():
+    """field name -> (curve, id in the curve's entry points: 0 = Fr, 1 =
+    Fq)"""
+    return {spec.name: (curve, fid) for curve, (bundle, _, _) in CURVES.items()
+            for fid, spec in enumerate((bundle().fr, bundle().fq))}
+
+
+@functools.cache
+def _groups():
+    """group name -> (curve, coordinate dimension: 1 = Fq, G1; 2 = Fq2,
+    G2)"""
+    return {g.name: (curve, cd) for curve, (bundle, _, _) in CURVES.items()
+            for cd, g in ((1, bundle().g1), (2, bundle().g2))}
 
 
 # ---------------------------------------------------------------------------
@@ -99,17 +150,27 @@ def _words_macro(x: int) -> str:
 
 
 def constants_header() -> str:
-    """constants.cuh: the moduli and Montgomery constants of fields/spec.py
-    and the G2 twist's b3, as preprocessor macros."""
-    from octopuszk_tpu_torch.curves.group_ops import g2_b3
-    b3 = g2_b3()
-    lines = ["// generated from fields/spec.py by ops/kernels.py", "#pragma once"]
-    for tag, spec in (("FR", FR), ("FQ", FQ)):
-        lines += [f"#define {tag}_P_WORDS {_words_macro(spec.p)}",
-                  f"#define {tag}_ONE_WORDS {_words_macro(spec.r_mod_p)}",
-                  f"#define {tag}_N0INV 0x{spec.n0inv32:08x}u"]
-    lines += [f"#define G2_B3_C0_WORDS {_words_macro(FQ.to_mont(b3[0]))}",
-              f"#define G2_B3_C1_WORDS {_words_macro(FQ.to_mont(b3[1]))}"]
+    """constants.cuh: for every curve, the moduli and Montgomery constants
+    of its fields and, on its Fq, the Fp2 non-residue and 3 b on G1 and on
+    the G2 twist, as preprocessor macros.  Raises ValueError for a modulus
+    of 2^254 or more: field.cuh's add and product keep 2p below 2^255."""
+    lines = ["// generated from the curves' specs by ops/kernels.py",
+             "#pragma once"]
+    for bundle, tag, _ in CURVES.values():
+        cv = bundle()
+        tq = "FQ" + tag
+        for t, spec in (("FR" + tag, cv.fr), (tq, cv.fq)):
+            if spec.p >= 1 << 254:
+                raise ValueError(f"{spec.name}: the kernels need p < 2^254")
+            lines += [f"#define {t}_P_WORDS {_words_macro(spec.p)}",
+                      f"#define {t}_ONE_WORDS {_words_macro(spec.r_mod_p)}",
+                      f"#define {t}_N0INV 0x{spec.n0inv32:08x}u"]
+        lines += [f"#define {tq}_NR ({cv.nr})",
+                  f"#define {tq}_G1_B3 {cv.b3}u",
+                  f"#define {tq}_G2_B3_C0_WORDS "
+                  f"{_words_macro(cv.fq.to_mont(cv.b3_g2[0]))}",
+                  f"#define {tq}_G2_B3_C1_WORDS "
+                  f"{_words_macro(cv.fq.to_mont(cv.b3_g2[1]))}"]
     return "\n".join(lines) + "\n"
 
 
@@ -120,17 +181,23 @@ def _nvcc() -> str:
     return exe
 
 
-def build() -> pathlib.Path:
-    """Compile the kernels (one nvcc per source, all started together) and
-    link them into one shared library.  Returns its path; a library already
-    built from the same sources is reused."""
-    global build_seconds
+def sources(curve: str) -> tuple:
+    """The sources of a curve's library."""
+    return CURVE_SOURCES + (
+        ("gather_kernels.cu",) if curve == GATHER_CURVE else ())
+
+
+def build(curve: str) -> pathlib.Path:
+    """Compile a curve's kernels (one nvcc per source, all started
+    together) and link them into one shared library.  Returns its path; a
+    library already built from the same sources is reused."""
+    defs = CURVES[curve][2]
     consts = constants_header()
     h = hashlib.sha256(consts.encode())
-    for name in HEADERS + SOURCES:
+    for name in HEADERS + sources(curve):
         h.update((CSRC / name).read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    out_dir = BUILD_ROOT / f"kernels-{h.hexdigest()[:16]}"
+    h.update(" ".join(NVCC_FLAGS + defs).encode())
+    out_dir = BUILD_ROOT / f"kernels-{curve}-{h.hexdigest()[:16]}"
     lib_path = out_dir / "liboctopuszk_kernels.so"
     if lib_path.exists():
         return lib_path
@@ -139,20 +206,21 @@ def build() -> pathlib.Path:
     (out_dir / "constants.cuh").write_text(consts)
     nvcc = _nvcc()
     procs = []
-    for src in SOURCES:
+    for src in sources(curve):
         obj = out_dir / (src[:-3] + ".o")
         log = open(out_dir / (src[:-3] + ".log"), "w")
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-I", str(out_dir), "-c",
-               str(CSRC / src), "-o", str(obj)]
+        cmd = [nvcc, *NVCC_FLAGS, *defs, "-I", str(CSRC), "-I", str(out_dir),
+               "-c", str(CSRC / src), "-o", str(obj)]
         procs.append((src, obj, log, subprocess.Popen(
             cmd, stdout=log, stderr=subprocess.STDOUT)))
     objs = []
     failed = []
     for src, obj, log, proc in procs:
-        rc = proc.wait()
+        proc.wait()
         log.close()
-        if rc != 0:
-            failed.append(f"{src}:\n" + (out_dir / (src[:-3] + ".log")).read_text())
+        if proc.returncode != 0:
+            failed.append(f"{src} ({curve}):\n"
+                          + (out_dir / (src[:-3] + ".log")).read_text())
         objs.append(str(obj))
     if failed:
         raise RuntimeError("nvcc failed\n" + "\n".join(failed))
@@ -163,56 +231,58 @@ def build() -> pathlib.Path:
     if link.returncode != 0:
         raise RuntimeError("nvcc link failed\n" + link.stdout)
     os.replace(tmp, lib_path)
-    build_seconds = time.perf_counter() - t0
+    build_seconds[curve] = time.perf_counter() - t0
     return lib_path
 
 
-def compile_log() -> str:
-    """What ptxas said (registers, spills) in this build directory."""
-    path = build().parent
-    return "\n".join((path / (s[:-3] + ".log")).read_text() for s in SOURCES)
+def compile_log(curve: str) -> dict:
+    """What ptxas said (registers, spills) in a curve's build directory, by
+    source."""
+    path = build(curve).parent
+    return {src: (path / (src[:-3] + ".log")).read_text()
+            for src in sources(curve)}
 
 
-def lib():
-    """The loaded kernel library (built at first use)."""
-    global _lib
-    if _lib is None:
-        cdll = ctypes.CDLL(str(build()))
-        vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        addrs = ctypes.POINTER(ctypes.c_ulonglong)
-        cdll.oz_butterfly.argtypes = [ci, ci, vp, vp, vp, vp, vp, ll, vp]
-        cdll.oz_mont_mul.argtypes = [ci, vp, vp, vp, ll, vp]
-        cdll.oz_mul_sub.argtypes = [ci, vp, vp, vp, vp, ll, vp]
-        cdll.oz_add_points.argtypes = [ci, addrs, addrs, addrs, ll, vp]
-        cdll.oz_double_points.argtypes = [ci, addrs, addrs, ll, ci, ci,
-                                          vp]
-        cdll.oz_scan_mixed.argtypes = [ci, ci, vp, vp, ll, ll, ll, ci, ci, ci,
-                                       addrs, vp]
-        cdll.oz_scan_full.argtypes = [ci, vp, vp, ll, ll, ll, ci, ci, ci,
-                                      addrs, vp]
-        cdll.oz_ntt_block.argtypes = [ci, ci, vp, vp, vp,
-                                      ctypes.POINTER(ll), vp, vp, ci, ll, ll,
-                                      vp]
-        cdll.oz_row_gather.argtypes = [vp, ll, vp, ll, ci, vp, vp]
-        words = ctypes.POINTER(ctypes.c_uint)
-        cdll.oz_mont_pow.argtypes = [ci, vp, vp, ll, words, ci, vp]
-        cdll.oz_batch_inv_rows.argtypes = [ci, vp, vp, ll, ll, words, ci, vp]
-        cdll.oz_window_table.argtypes = [ci, addrs, addrs, ll, ci, ci, addrs,
-                                         vp]
-        cdll.oz_combine_windows.argtypes = [ci, addrs, ll, ci, ci, addrs, vp]
-        cdll.oz_lane_row_sums.argtypes = [ci, addrs, ll, ll, ll, addrs, vp]
-        cdll.oz_tree_sum.argtypes = [ci, addrs, addrs, ll, ll, addrs, vp, vp]
-        cdll.oz_prefix_sum.argtypes = [ci, addrs, addrs, ll, ll, addrs, vp, vp]
-        for fn in (cdll.oz_butterfly, cdll.oz_mont_mul, cdll.oz_mul_sub,
-                   cdll.oz_add_points, cdll.oz_double_points,
-                   cdll.oz_scan_mixed, cdll.oz_scan_full,
-                   cdll.oz_row_gather, cdll.oz_mont_pow,
-                   cdll.oz_batch_inv_rows, cdll.oz_window_table,
-                   cdll.oz_combine_windows, cdll.oz_lane_row_sums,
-                   cdll.oz_tree_sum, cdll.oz_prefix_sum, cdll.oz_ntt_block):
-            fn.restype = ci
-        _lib = cdll
-    return _lib
+def _argtypes():
+    """Each entry point's C argument types."""
+    vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    addrs = ctypes.POINTER(ctypes.c_ulonglong)
+    words = ctypes.POINTER(ctypes.c_uint)
+    return {
+        "oz_butterfly": [ci, ci, vp, vp, vp, vp, vp, ll, vp],
+        "oz_mont_mul": [ci, vp, vp, vp, ll, vp],
+        "oz_mul_sub": [ci, vp, vp, vp, vp, ll, vp],
+        "oz_add_points": [ci, addrs, addrs, addrs, ll, vp],
+        "oz_double_points": [ci, addrs, addrs, ll, ci, ci, vp],
+        "oz_scan_mixed": [ci, ci, vp, vp, ll, ll, ll, ci, ci, ci, addrs, vp],
+        "oz_scan_full": [ci, vp, vp, ll, ll, ll, ci, ci, ci, addrs, vp],
+        "oz_ntt_block": [ci, ci, vp, vp, vp, ctypes.POINTER(ll), vp, vp, ci,
+                         ll, ll, vp],
+        "oz_mont_pow": [ci, vp, vp, ll, words, ci, vp],
+        "oz_batch_inv_rows": [ci, vp, vp, ll, ll, words, ci, vp],
+        "oz_window_table": [ci, addrs, addrs, ll, ci, ci, addrs, vp],
+        "oz_combine_windows": [ci, addrs, ll, ci, ci, addrs, vp],
+        "oz_lane_row_sums": [ci, addrs, ll, ll, ll, addrs, vp],
+        "oz_tree_sum": [ci, addrs, addrs, ll, ll, addrs, vp, vp],
+        "oz_prefix_sum": [ci, addrs, addrs, ll, ll, addrs, vp, vp],
+    }
+
+
+def lib(curve: str):
+    """A curve's loaded kernel library (built at the curve's first use)."""
+    if curve not in _libs:
+        cdll = ctypes.CDLL(str(build(curve)))
+        for name, args in _argtypes().items():
+            fn = getattr(cdll, name)
+            fn.argtypes, fn.restype = args, ctypes.c_int
+        if curve == GATHER_CURVE:
+            cdll.oz_row_gather.argtypes = [
+                ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+                ctypes.c_void_p]
+            cdll.oz_row_gather.restype = ctypes.c_int
+        _libs[curve] = cdll
+    return _libs[curve]
 
 
 def _stream():
@@ -228,11 +298,28 @@ def _addr_array(tensors):
     return (ctypes.c_ulonglong * len(tensors))(*[t.data_ptr() for t in tensors])
 
 
-def _field_id(spec: FieldSpec) -> int:
+def _field_entry(spec: FieldSpec, name: str):
+    """(entry point ``name`` of the field's curve, the field's id there,
+    the curve)."""
     try:
-        return _FIELD_IDS[spec.name]
+        curve, fid = _fields()[spec.name]
     except KeyError:
         raise ValueError(f"no kernel for field {spec.name}") from None
+    return getattr(lib(curve), name), fid, curve
+
+
+def _group(group_name: str):
+    """(curve, coordinate dimension) of a group the kernels know."""
+    try:
+        return _groups()[group_name]
+    except KeyError:
+        raise ValueError(f"no kernel for group {group_name}") from None
+
+
+def _group_entry(group_name: str, name: str):
+    """(entry point ``name`` of the group's curve, the curve)."""
+    curve = _group(group_name)[0]
+    return getattr(lib(curve), name), curve
 
 
 def _field_operands(*tensors):
@@ -285,10 +372,11 @@ def mont_mul(spec: FieldSpec, a, b):
     out = torch.empty_like(a)
     if out.numel() == 0:            # nothing to launch, nothing counted
         return out
-    rc = lib().oz_mont_mul(_field_id(spec), a.data_ptr(), b.data_ptr(),
-                           out.data_ptr(), _count(a), _stream())
+    fn, fid, curve = _field_entry(spec, "oz_mont_mul")
+    rc = fn(fid, a.data_ptr(), b.data_ptr(), out.data_ptr(), _count(a),
+            _stream())
     _check(rc, "mont_mul")
-    LAUNCHES["mont_mul"] += 1
+    CURVE_LAUNCHES[curve]["mont_mul"] += 1
     return out
 
 
@@ -304,10 +392,11 @@ def mul_sub(spec: FieldSpec, a, b, c):
     out = torch.empty_like(a)
     if out.numel() == 0:
         return out
-    rc = lib().oz_mul_sub(_field_id(spec), a.data_ptr(), b.data_ptr(),
-                          c.data_ptr(), out.data_ptr(), _count(a), _stream())
+    fn, fid, curve = _field_entry(spec, "oz_mul_sub")
+    rc = fn(fid, a.data_ptr(), b.data_ptr(), c.data_ptr(), out.data_ptr(),
+            _count(a), _stream())
     _check(rc, "mul_sub")
-    LAUNCHES["mul_sub"] += 1
+    CURVE_LAUNCHES[curve]["mul_sub"] += 1
     return out
 
 
@@ -328,11 +417,11 @@ def butterfly(spec: FieldSpec, a, b, w, dif: bool):
     o0, o1 = torch.empty_like(a), torch.empty_like(a)
     if o0.numel() == 0:
         return o0, o1
-    rc = lib().oz_butterfly(_field_id(spec), int(bool(dif)), a.data_ptr(),
-                            b.data_ptr(), w.data_ptr(), o0.data_ptr(),
-                            o1.data_ptr(), _count(a), _stream())
+    fn, fid, curve = _field_entry(spec, "oz_butterfly")
+    rc = fn(fid, int(bool(dif)), a.data_ptr(), b.data_ptr(), w.data_ptr(),
+            o0.data_ptr(), o1.data_ptr(), _count(a), _stream())
     _check(rc, "butterfly")
-    LAUNCHES["butterfly"] += 1
+    CURVE_LAUNCHES[curve]["butterfly"] += 1
     return o0, o1
 
 
@@ -448,14 +537,15 @@ def ntt_block(spec: FieldSpec, x, tw, dif: bool, pre=None, post=None):
     for t in (x, pre_v, post_v):
         strides += [0, 0, 0, 0] if t is None else list(t.stride())
     inner = x.shape[3]
-    rc = lib().oz_ntt_block(
-        _field_id(spec), int(bool(dif)), x.data_ptr(),
+    fn, fid, curve = _field_entry(spec, "oz_ntt_block")
+    rc = fn(
+        fid, int(bool(dif)), x.data_ptr(),
         None if pre_v is None else pre_v.data_ptr(),
         None if post_v is None else post_v.data_ptr(),
         (ctypes.c_longlong * 12)(*strides), tw.data_ptr(), out.data_ptr(),
         L.bit_length() - 1, out.numel() // (NUM_WORDS * L), inner, _stream())
     _check(rc, "ntt_block")
-    LAUNCHES["ntt_block"] += 1
+    CURVE_LAUNCHES[curve]["ntt_block"] += 1
     return out
 
 
@@ -501,10 +591,11 @@ def mont_pow(spec: FieldSpec, a, e: int):
     out = torch.empty_like(a)
     if out.numel() == 0:
         return out
-    rc = lib().oz_mont_pow(_field_id(spec), a.data_ptr(), out.data_ptr(),
-                           _count(a), words, top, _stream())
+    fn, fid, curve = _field_entry(spec, "oz_mont_pow")
+    rc = fn(fid, a.data_ptr(), out.data_ptr(), _count(a), words, top,
+            _stream())
     _check(rc, "mont_pow")
-    LAUNCHES["mont_pow"] += 1
+    CURVE_LAUNCHES[curve]["mont_pow"] += 1
     return out
 
 
@@ -556,11 +647,11 @@ def batch_inv_rows(spec: FieldSpec, a):
     if n == 0:
         return out
     words, top = _exponent(spec.p_minus_2)
-    rc = lib().oz_batch_inv_rows(_field_id(spec), a.data_ptr(),
-                                 out.data_ptr(), n, min(INV_LANES, n), words,
-                                 top, _stream())
+    fn, fid, curve = _field_entry(spec, "oz_batch_inv_rows")
+    rc = fn(fid, a.data_ptr(), out.data_ptr(), n, min(INV_LANES, n), words,
+            top, _stream())
     _check(rc, "batch_inv_rows")
-    LAUNCHES["batch_inv_rows"] += 1
+    CURVE_LAUNCHES[curve]["batch_inv_rows"] += 1
     return out
 
 
@@ -572,23 +663,25 @@ _PLAIN_OPS = {}
 
 
 def plain_ops(group_name: str):
-    """The coordinate-field namespace of a group over the plain CIOS."""
+    """The coordinate-field namespace of a group over the plain CIOS, with
+    its curve's Fq, Fp2 non-residue and b3."""
     if group_name not in _PLAIN_OPS:
         from octopuszk_tpu_torch.curves import group_ops
-        make = {"G1": group_ops.make_fp_ops, "G2": group_ops.make_fp2_ops}
-        if group_name not in make:
-            raise ValueError(f"no kernel for group {group_name}")
-        _PLAIN_OPS[group_name] = make[group_name](
-            FQ, group_name=group_name, mul=mont_mul_plain)
+        curve, cd = _group(group_name)
+        cv = CURVES[curve][0]()
+        _PLAIN_OPS[group_name] = (
+            group_ops.make_fp_ops(cv.fq, b3=cv.b3, group_name=group_name,
+                                  mul=mont_mul_plain) if cd == 1 else
+            group_ops.make_fp2_ops(cv.fq, nr=cv.nr, b3=cv.b3_g2,
+                                   group_name=group_name,
+                                   mul=mont_mul_plain))
     return _PLAIN_OPS[group_name]
 
 
 def _point_operands(group_name: str, *points):
     """Flatten points to component lists broadcast to one batch shape."""
     from octopuszk_tpu_torch.curves.group_ops import flatten_coords
-    cd = _GROUP_IDS[group_name] if group_name in _GROUP_IDS else None
-    if cd is None:
-        raise ValueError(f"no kernel for group {group_name}")
+    _, cd = _group(group_name)
     flats = [flatten_coords(p) for p in points]
     for f in flats:
         if len(f) != 3 * cd:
@@ -613,10 +706,11 @@ def add_points(group_name: str, p, q):
     outs = [torch.empty_like(t) for t in fp_]
     if outs[0].numel() == 0:
         return rebuild_coords(outs, cd)
-    rc = lib().oz_add_points(cd, _addr_array(fp_), _addr_array(fq_),
-                             _addr_array(outs), _count(fp_[0]), _stream())
+    fn, curve = _group_entry(group_name, "oz_add_points")
+    rc = fn(cd, _addr_array(fp_), _addr_array(fq_), _addr_array(outs),
+            _count(fp_[0]), _stream())
     _check(rc, "add_points")
-    LAUNCHES["add_points"] += 1
+    CURVE_LAUNCHES[curve]["add_points"] += 1
     return rebuild_coords(outs, cd)
 
 
@@ -654,11 +748,11 @@ def double_points(group_name: str, p, times: int = 1,
             for _ in fp_]
     if outs[0].numel() == 0:
         return rebuild_coords(outs, cd)
-    rc = lib().oz_double_points(cd, _addr_array(fp_), _addr_array(outs),
-                                _count(fp_[0]), times, int(bool(every_step)),
-                                _stream())
+    fn, curve = _group_entry(group_name, "oz_double_points")
+    rc = fn(cd, _addr_array(fp_), _addr_array(outs), _count(fp_[0]), times,
+            int(bool(every_step)), _stream())
     _check(rc, "double_points")
-    LAUNCHES["double_points"] += 1
+    CURVE_LAUNCHES[curve]["double_points"] += 1
     return rebuild_coords(outs, cd)
 
 
@@ -735,11 +829,11 @@ def window_table(group_name: str, base, powers, w: int, outerc: int):
         return window_table_plain(group_name, base, powers, w, outerc)
     fb = [c.reshape(NUM_WORDS, 1) for c in fb]
     outs = _points_out(fb, (NUM_WORDS, outerc, 1 << w))
-    rc = lib().oz_window_table(cd, _addr_array(fb), _addr_array(fpw),
-                               fpw[0].shape[1], w, outerc, _addr_array(outs),
-                               _stream())
+    fn, curve = _group_entry(group_name, "oz_window_table")
+    rc = fn(cd, _addr_array(fb), _addr_array(fpw), fpw[0].shape[1], w, outerc,
+            _addr_array(outs), _stream())
     _check(rc, "window_table")
-    LAUNCHES["window_table"] += 1
+    CURVE_LAUNCHES[curve]["window_table"] += 1
     return rebuild_coords(outs, cd)
 
 
@@ -774,10 +868,11 @@ def combine_windows(group_name: str, wins, c: int):
     outs = _points_out(comps, comps[0].shape[:-1])
     if batch == 0:
         return rebuild_coords(outs, cd)
-    rc = lib().oz_combine_windows(cd, _addr_array(comps), batch, num_win, c,
-                                  _addr_array(outs), _stream())
+    fn, curve = _group_entry(group_name, "oz_combine_windows")
+    rc = fn(cd, _addr_array(comps), batch, num_win, c, _addr_array(outs),
+            _stream())
     _check(rc, "combine_windows")
-    LAUNCHES["combine_windows"] += 1
+    CURVE_LAUNCHES[curve]["combine_windows"] += 1
     return rebuild_coords(outs, cd)
 
 
@@ -818,10 +913,11 @@ def lane_row_sums(group_name: str, p, width: int):
     outs = _points_out(comps, comps[0].shape[:-1] + (width,))
     if batch == 0:
         return rebuild_coords(outs, cd)
-    rc = lib().oz_lane_row_sums(cd, _addr_array(comps), batch, n, width,
-                                _addr_array(outs), _stream())
+    fn, curve = _group_entry(group_name, "oz_lane_row_sums")
+    rc = fn(cd, _addr_array(comps), batch, n, width, _addr_array(outs),
+            _stream())
     _check(rc, "lane_row_sums")
-    LAUNCHES["lane_row_sums"] += 1
+    CURVE_LAUNCHES[curve]["lane_row_sums"] += 1
     return rebuild_coords(outs, cd)
 
 
@@ -865,11 +961,11 @@ def _levels_launch(group_name, p, name, out_shape):
         return rebuild_coords(outs, cd)
     scratch = _points_out(comps, comps[0].shape)
     count = torch.zeros(1, dtype=torch.int32, device=comps[0].device)
-    fn = lib().oz_tree_sum if name == "tree_sum" else lib().oz_prefix_sum
+    fn, curve = _group_entry(group_name, "oz_" + name)
     rc = fn(cd, _addr_array(comps), _addr_array(scratch), batch, n,
             _addr_array(outs), count.data_ptr(), _stream())
     _check(rc, name)
-    LAUNCHES[name] += 1
+    CURVE_LAUNCHES[curve][name] += 1
     return rebuild_coords(outs, cd)
 
 
@@ -895,9 +991,7 @@ def prefix_sum(group_name: str, p):
 # ---------------------------------------------------------------------------
 
 def _scan_operands(group_name: str, packed, idx2):
-    if group_name not in _GROUP_IDS:
-        raise ValueError(f"no kernel for group {group_name}")
-    cd = _GROUP_IDS[group_name]
+    _, cd = _group(group_name)
     if (packed.dtype != torch.int32 or packed.dim() != 2
             or packed.shape[1] != 2 * cd * NUM_WORDS
             or not packed.is_contiguous()):
@@ -929,7 +1023,8 @@ def _scan_plain(group_name: str, packed, idx2, write_prefix: bool):
             2 * cd, NUM_WORDS, batch, lanes).unbind(0))
         negb = (e[:, r] & 1) != 0
         for i in range(cd, 2 * cd):                      # negate Y
-            comps[i] = torch.where(negb, fp.neg(FQ, comps[i]), comps[i])
+            comps[i] = torch.where(negb, fp.neg(ops.spec, comps[i]),
+                                   comps[i])
         q = group_ops.rebuild_coords(comps, cd)
         q_inf = ops.is_zero(q[1])                        # Y == 0: identity
         carry = group_ops.mixed_add(ops, carry, q, q_inf_mask=q_inf)
@@ -953,11 +1048,11 @@ def _scan_launch(group_name, packed, idx2, write_prefix, name):
     if outs[0].numel() == 0:
         return rebuild_coords(outs, cd)
     sb, sr, sl = idx2.stride()
-    rc = lib().oz_scan_mixed(cd, int(write_prefix), packed.data_ptr(),
-                             idx2.data_ptr(), sb, sr, sl, batch, rows, lanes,
-                             _addr_array(outs), _stream())
+    fn, curve = _group_entry(group_name, "oz_scan_mixed")
+    rc = fn(cd, int(write_prefix), packed.data_ptr(), idx2.data_ptr(), sb, sr,
+            sl, batch, rows, lanes, _addr_array(outs), _stream())
     _check(rc, name)
-    LAUNCHES[name] += 1
+    CURVE_LAUNCHES[curve][name] += 1
     return rebuild_coords(outs, cd)
 
 
@@ -1071,11 +1166,11 @@ def scan_accumulate(group_name: str, points, idx):
     if outs[0].numel() == 0 or _count(comps[0]) == 0:
         return rebuild_coords(outs, cd)
     sb, sr, sl = idx.stride()
-    rc = lib().oz_scan_full(cd, rows_t.data_ptr(), idx.data_ptr(), sb, sr,
-                            sl, batch, rows, lanes, _addr_array(outs),
-                            _stream())
+    fn, curve = _group_entry(group_name, "oz_scan_full")
+    rc = fn(cd, rows_t.data_ptr(), idx.data_ptr(), sb, sr, sl, batch, rows,
+            lanes, _addr_array(outs), _stream())
     _check(rc, "scan_accumulate")
-    LAUNCHES["scan_accumulate"] += 1
+    CURVE_LAUNCHES[curve]["scan_accumulate"] += 1
     return rebuild_coords(outs, cd)
 
 
@@ -1118,9 +1213,9 @@ def row_gather(table, idx):
         return out
     if table.shape[0] == 0:
         raise IndexError("gather from an empty table")
-    rc = lib().oz_row_gather(table.data_ptr(), table.shape[0], idx.data_ptr(),
+    rc = lib(GATHER_CURVE).oz_row_gather(table.data_ptr(), table.shape[0], idx.data_ptr(),
                              idx.shape[0], table.shape[1], out.data_ptr(),
                              _stream())
     _check(rc, "row_gather")
-    LAUNCHES["row_gather"] += 1
+    CURVE_LAUNCHES[GATHER_CURVE]["row_gather"] += 1
     return out

@@ -4,13 +4,14 @@ Port of ``octopuszk_tpu/profiler/profiler.py``, serial form:
 ``python -m octopuszk_tpu_torch.profiler <app> <log2size> [--inputs=N]``.
 The app names, the workloads (the same seeds and draws as the reference)
 and the printed lines are the reference's: fft, lagrange, fmsm-g1,
-fmsm-g2, vmsm-g1, vmsm-g2, relation, witness, zksnark, bace, matmul,
-regression, gaussian.  Each app's timings are appended to
-``<events_dir>/<app>.csv`` (utils/config.py).
+fmsm-g2, vmsm-g1, vmsm-g2, relation, witness, zksnark, zksnark-large
+(Groth16 on the second curve, BN254b), bace, matmul, regression,
+gaussian.  Each app's timings are appended to ``<events_dir>/<app>.csv``
+(utils/config.py).
 
-Not yet in the port: ``zksnark-large`` (Groth16 on BN254b) and the
-distributed form ``<ndev> <app> <log2size>``; for either ``main`` says
-which ROADMAP item it waits for and returns 1, as for an unknown app.
+Not yet in the port: the distributed form ``<ndev> <app> <log2size>``;
+for it ``main`` says which ROADMAP item it waits for and returns 1, as for
+an unknown app.
 """
 
 from __future__ import annotations
@@ -165,6 +166,30 @@ def profile_zksnark(config, n, device, inputs=ZKSNARK_INPUTS):
     _require(ok, "zksnark")
 
 
+def profile_zksnark_large(config, n, device):
+    """Groth16 end to end on the second curve family, BN254b: the
+    reference's ``zksnark-large`` app (its Profiler.java dispatches the
+    same pipeline over the bn254b package)."""
+    from octopuszk_tpu_torch.curves.family import bn254b
+    from octopuszk_tpu_torch.models.groth16 import prover, setup, verifier
+    from octopuszk_tpu_torch.relations import construct
+    curve = bn254b()
+    r1cs, primary, aux = construct.serial_construct(n - 3, 3, spec=curve.fr,
+                                                    device=device)
+    config.begin_runtime("setup-bn254b")
+    crs = setup.setup(r1cs, seed=config.seed, curve=curve)
+    _force(device)
+    print(f"setup: {config.end_runtime('setup-bn254b'):.3f}s", flush=True)
+    prover.prove(crs.proving_key, primary, aux, curve=curve)  # warm-up
+    config.begin_runtime("prove-bn254b")
+    proof = prover.prove(crs.proving_key, primary, aux, curve=curve)
+    _force(device)
+    print(f"prove: {config.end_runtime('prove-bn254b'):.3f}s", flush=True)
+    ok = verifier.verify(crs.verification_key, primary, proof, curve=curve)
+    print(f"verify ok={ok}", flush=True)
+    _require(ok, "zksnark-large")
+
+
 def bace_circuit():
     """The bace app's circuit: (x0 + x1) * x0."""
     from octopuszk_tpu_torch.models.bace.circuit import (
@@ -239,18 +264,13 @@ APPS = {
     "relation": profile_relation,
     "witness": profile_witness,
     "zksnark": profile_zksnark,
+    "zksnark-large": profile_zksnark_large,
     "bace": profile_bace,
     "matmul": profile_matmul,
     "regression": profile_lr,
     "gaussian": profile_gaussian,
 }
 
-# apps of the reference that the port does not run yet, with what they
-# wait for
-WAITING = {
-    "zksnark-large": "zksnark-large (Groth16 on BN254b) waits for "
-                     "ROADMAP.md queue 1 item 5 (curve families)",
-}
 DISTRIBUTED = ("the distributed form <ndev> <app> <log2size> waits for "
                "ROADMAP.md queue 1 item 8 (distributed)")
 
@@ -276,9 +296,6 @@ def main(argv=None, device=None, events_dir=None):
               f"serial apps: {', '.join(APPS)}")
         return 1
     app, log2 = argv[0].lower(), int(argv[1])
-    if app in WAITING:
-        print(WAITING[app])
-        return 1
     if app not in APPS:
         print(f"unknown app {app}; apps: {', '.join(APPS)}")
         return 1

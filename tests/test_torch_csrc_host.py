@@ -8,8 +8,9 @@ a flag variable (field.cuh, namespace ``cc``).  So this runs the same
 sequence of steps (the Montgomery product's even/odd rounds, the chained
 add, subtract and conditional subtract) and the same point formulas, term
 for term, that the kernels run: what the card adds is the instruction
-selection.  Inputs: seeded random words below p, with 0, 1 and p - 1 among
-them; tolerance: exact."""
+selection.  Both curves: BN254a and BN254b, whose Fp2 non-residue -5 and
+G1 b3 = 39 take the headers' other branches.  Inputs: seeded random words
+below p, with 0, 1 and p - 1 among them; tolerance: exact."""
 
 import ctypes
 import random
@@ -20,6 +21,7 @@ import pytest
 import torch
 
 from octopuszk_tpu_torch.curves import bn254
+from octopuszk_tpu_torch.curves.family import bn254b
 from octopuszk_tpu_torch.fields import spec as tspec
 from octopuszk_tpu_torch.ops import kernels
 from octopuszk_tpu_torch.utils.bigint import ints_to_words
@@ -27,6 +29,15 @@ from octopuszk_tpu_torch.utils.bigint import ints_to_words
 torch.set_num_threads(1)
 
 N = 64
+# the harness's field and group ids (BN254a, then BN254b: u^2 = -5, b3 = 39)
+FIELDS = {"fr": (0, tspec.FR), "fq": (1, tspec.FQ), "frb": (2, tspec.FR_B),
+          "fqb": (3, tspec.FQ_B)}
+GROUP_IDS = {"G1": 1, "G2": 2, "bn254b-G1": 3, "bn254b-G2": 4}
+
+
+def _group(gname):
+    return {"G1": bn254.G1, "G2": bn254.G2, "bn254b-G1": bn254b().g1,
+            "bn254b-G2": bn254b().g2}[gname]
 
 HARNESS = r"""
 #define __host__
@@ -37,7 +48,31 @@ HARNESS = r"""
 #include "rcb.cuh"
 #include "ntt.cuh"
 
-template <class M> using Op2 = Fp<M> (*)(const Fp<M>&, const Fp<M>&);
+// field ids: 0 BN254a Fr, 1 BN254a Fq, 2 BN254b Fr, 3 BN254b Fq; fn is
+// called with a value of the modulus type
+template <class Fn>
+static void with_field(int field, Fn fn) {
+  switch (field) {
+    case 0: fn(FrMod{}); break;
+    case 1: fn(FqMod{}); break;
+    case 2: fn(FrbMod{}); break;
+    default: fn(FqbMod{}); break;
+  }
+}
+
+// group ids: 1 BN254a G1, 2 BN254a G2, 3 BN254b G1, 4 BN254b G2; fn is
+// called with a value of the coordinate type
+template <class Fn>
+static void with_group(int group, Fn fn) {
+  switch (group) {
+    case 1: fn(Fp<FqMod>{}); break;
+    case 2: fn(Fp2<FqMod>{}); break;
+    case 3: fn(Fp<FqbMod>{}); break;
+    default: fn(Fp2<FqbMod>{}); break;
+  }
+}
+
+static int coord_dim(int group) { return group % 2 ? 1 : 2; }
 
 template <class M>
 static void binary(int op, const uint32_t* a, const uint32_t* b,
@@ -55,32 +90,36 @@ static void binary(int op, const uint32_t* a, const uint32_t* b,
   }
 }
 
-// op: 0 mul, 1 add, 2 sub, 3 neg (of a); field 0 = Fr, 1 = Fq
+// op: 0 mul, 1 add, 2 sub, 3 neg (of a)
 extern "C" void field_op(int field, int op, const uint32_t* a,
                          const uint32_t* b, uint32_t* out, long n) {
-  if (field == 0) binary<FrMod>(op, a, b, out, n);
-  else binary<FqMod>(op, a, b, out, n);
+  with_field(field, [&](auto m) { binary<decltype(m)>(op, a, b, out, n); });
 }
 
-static void load(G1Coord& c, uint32_t* const* p, int ci, long n, long i) {
-  c = fp_load<FqMod>(p[ci], n, i);
+template <class M>
+static void load(Fp<M>& c, uint32_t* const* p, int ci, long n, long i) {
+  c = fp_load<M>(p[ci], n, i);
 }
-static void load(G2Coord& c, uint32_t* const* p, int ci, long n, long i) {
-  c.c0 = fp_load<FqMod>(p[2 * ci], n, i);
-  c.c1 = fp_load<FqMod>(p[2 * ci + 1], n, i);
+template <class M>
+static void load(Fp2<M>& c, uint32_t* const* p, int ci, long n, long i) {
+  c.c0 = fp_load<M>(p[2 * ci], n, i);
+  c.c1 = fp_load<M>(p[2 * ci + 1], n, i);
 }
-static void store(const G1Coord& c, uint32_t* const* p, int ci, long n,
+template <class M>
+static void store(const Fp<M>& c, uint32_t* const* p, int ci, long n,
                   long i) {
-  fp_store<FqMod>(p[ci], n, i, c);
+  fp_store<M>(p[ci], n, i, c);
 }
-static void store(const G2Coord& c, uint32_t* const* p, int ci, long n,
+template <class M>
+static void store(const Fp2<M>& c, uint32_t* const* p, int ci, long n,
                   long i) {
-  fp_store<FqMod>(p[2 * ci], n, i, c.c0);
-  fp_store<FqMod>(p[2 * ci + 1], n, i, c.c1);
+  fp_store<M>(p[2 * ci], n, i, c.c0);
+  fp_store<M>(p[2 * ci + 1], n, i, c.c1);
 }
 
-// op: 0 add (p + q), 1 double (p), 2 mixed add (p + (q.x, q.y)); the
-// components of each point: 3 (G1) or 6 (G2) word-major [8, n] arrays
+// op: 0 add (p + q), 1 double (p), 2 mixed add (p + (q.x, q.y)), 3 b3
+// times p.x; the components of each point: 3 (G1) or 6 (G2) word-major
+// [8, n] arrays
 template <class C>
 static void points(int op, uint32_t* const* p, uint32_t* const* q,
                    uint32_t* const* out, long n) {
@@ -90,7 +129,8 @@ static void points(int op, uint32_t* const* p, uint32_t* const* q,
     load(b.x, q, 0, n, i); load(b.y, q, 1, n, i); load(b.z, q, 2, n, i);
     if (op == 0) r = pt_add(a, b);
     else if (op == 1) r = pt_double(a);
-    else r = pt_mixed_add(a, b.x, b.y);
+    else if (op == 2) r = pt_mixed_add(a, b.x, b.y);
+    else r = {mul_b3(a.x), a.y, a.z};
     store(r.x, out, 0, n, i); store(r.y, out, 1, n, i);
     store(r.z, out, 2, n, i);
   }
@@ -98,8 +138,7 @@ static void points(int op, uint32_t* const* p, uint32_t* const* q,
 
 extern "C" void point_op(int group, int op, uint32_t* const* p,
                          uint32_t* const* q, uint32_t* const* out, long n) {
-  if (group == 1) points<G1Coord>(op, p, q, out, n);
-  else points<G2Coord>(op, p, q, out, n);
+  with_group(group, [&](auto c) { points<decltype(c)>(op, p, q, out, n); });
 }
 
 // --- the chains that run as one launch each, every thread's work in turn
@@ -120,8 +159,9 @@ static void pow_all(const uint32_t* a, uint32_t* out, long n,
 
 extern "C" void pow_op(int field, const uint32_t* a, uint32_t* out, long n,
                        const uint32_t* e, int top) {
-  if (field == 0) pow_all<FrMod>(a, out, n, exponent(e, top));
-  else pow_all<FqMod>(a, out, n, exponent(e, top));
+  with_field(field, [&](auto m) {
+    pow_all<decltype(m)>(a, out, n, exponent(e, top));
+  });
 }
 
 // every lane of the batch inversion, one after the other
@@ -129,15 +169,16 @@ extern "C" void batch_inv_op(int field, const uint32_t* a, uint32_t* out,
                              long n, long lanes, const uint32_t* pm2,
                              int top) {
   const Exponent e = exponent(pm2, top);
-  for (long l = 0; l < lanes; l++) {
-    if (field == 0) batch_inv_lane<FrMod>(a, out, n, lanes, l, e);
-    else batch_inv_lane<FqMod>(a, out, n, lanes, l, e);
-  }
+  with_field(field, [&](auto m) {
+    for (long l = 0; l < lanes; l++)
+      batch_inv_lane<decltype(m)>(a, out, n, lanes, l, e);
+  });
 }
 
 static PointPtrs ptrs(uint32_t* const* a, int group) {
   PointPtrs p;
-  for (int k = 0; k < 6; k++) p.c[k] = k < 3 * group ? a[k] : nullptr;
+  for (int k = 0; k < 6; k++)
+    p.c[k] = k < 3 * coord_dim(group) ? a[k] : nullptr;
   return p;
 }
 
@@ -183,8 +224,9 @@ static void chain(int op, int group, uint32_t* const* a, uint32_t* const* b,
 extern "C" void chain_op(int op, int group, uint32_t* const* a,
                          uint32_t* const* b, uint32_t* const* out, long batch,
                          long n, int x, int y) {
-  if (group == 1) chain<G1Coord>(op, group, a, b, out, batch, n, x, y);
-  else chain<G2Coord>(op, group, a, b, out, batch, n, x, y);
+  with_group(group, [&](auto c) {
+    chain<decltype(c)>(op, group, a, b, out, batch, n, x, y);
+  });
 }
 
 // one thread: every item of a phase in order, no barrier needed
@@ -263,9 +305,9 @@ def _ptrs(ts):
     return (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
 
 
-@pytest.mark.parametrize("field", ["fr", "fq"])
+@pytest.mark.parametrize("field", sorted(FIELDS))
 def test_field_arithmetic(host_lib, field):
-    spec = {"fr": tspec.FR, "fq": tspec.FQ}[field]
+    fid, spec = FIELDS[field]
     a = _words(_field_values(spec.p, 1))
     b = _words(_field_values(spec.p, 2))
     b[:, :5] = a[:, :5]                          # equal operands
@@ -274,7 +316,7 @@ def test_field_arithmetic(host_lib, field):
             2: fp.sub(spec, a, b), 3: fp.neg(spec, a)}
     for op, w in want.items():
         out = torch.empty_like(a)
-        host_lib.field_op(int(field == "fq"), op, _ptr(a), _ptr(b), _ptr(out),
+        host_lib.field_op(fid, op, _ptr(a), _ptr(b), _ptr(out),
                           ctypes.c_long(N))
         assert torch.equal(out, w), (field, op)
 
@@ -286,14 +328,14 @@ def _flat(p):
     return out
 
 
-@pytest.mark.parametrize("gname", ["G1", "G2"])
+@pytest.mark.parametrize("gname", sorted(GROUP_IDS))
 def test_point_formulas(host_lib, gname):
     """Full add, double and mixed add (the scans' step, in the order of
-    rcb.cuh) on points of the curve with the identity, equal and inverse
-    pairs among them, and on random field elements off the curve (the
-    formulas are polynomials)."""
+    rcb.cuh) and the product by b3 on points of the curve with the
+    identity, equal and inverse pairs among them, and on random field
+    elements off the curve (the formulas are polynomials)."""
     from octopuszk_tpu_torch.curves import group_ops
-    g = {"G1": bn254.G1, "G2": bn254.G2}[gname]
+    g = _group(gname)
     cd = g.coord_dim
     rng = random.Random(3)
     pts = [g.host.mul(g.generator_affine, rng.randrange(1, 1 << 64))
@@ -305,19 +347,20 @@ def test_point_formulas(host_lib, gname):
     qs[2] = g.host.neg(pts[2])
     on_curve = (g.points_to_device(pts, "cpu"), g.points_to_device(qs, "cpu"))
     off = tuple(group_ops.rebuild_coords(
-        [_words([rng.randrange(tspec.FQ.p) for _ in range(N)])
+        [_words([rng.randrange(g.fq.p) for _ in range(N)])
          for _ in range(3 * cd)], cd) for _ in range(2))
     ops = kernels.plain_ops(gname)
     for p, q in (on_curve, off):
         x2, y2 = q[0], q[1]
         want = {0: kernels.add_points_plain(gname, p, q),
                 1: kernels.double_points_plain(gname, p),
-                2: group_ops.mixed_add(ops, p, (x2, y2))}
+                2: group_ops.mixed_add(ops, p, (x2, y2)),
+                3: (ops.mul_b3(p[0]), p[1], p[2])}
         fp_, fq_ = _flat(p), _flat(q)
         for op, w in want.items():
             outs = [torch.empty_like(t) for t in fp_]
-            host_lib.point_op(cd, op, _ptrs(fp_), _ptrs(fq_), _ptrs(outs),
-                              ctypes.c_long(N))
+            host_lib.point_op(GROUP_IDS[gname], op, _ptrs(fp_), _ptrs(fq_),
+                              _ptrs(outs), ctypes.c_long(N))
             for got, ref in zip(outs, _flat(w)):
                 assert torch.equal(got, ref), (gname, op)
 
@@ -327,24 +370,24 @@ def _exponent(e):
                                    for k in range(8)]), e.bit_length() - 1
 
 
-@pytest.mark.parametrize("field", ["fr", "fq"])
+@pytest.mark.parametrize("field", sorted(FIELDS))
 def test_field_chains(host_lib, field):
     """The square-and-multiply chain (q - 2, r - 2, short exponents, 0) and
     the batch inversion's lane sweeps (interleaved lanes, zeros among the
     inputs, n not a multiple of the lane count) against the plain
     versions."""
-    spec = {"fr": tspec.FR, "fq": tspec.FQ}[field]
+    fid, spec = FIELDS[field]
     a = _words(_field_values(spec.p, 4)[:37])
     for e in (spec.p_minus_2, 0b1011001, 1, 0):
         out = torch.empty_like(a)
         words, top = _exponent(e)
-        host_lib.pow_op(int(field == "fq"), _ptr(a), _ptr(out),
+        host_lib.pow_op(fid, _ptr(a), _ptr(out),
                         ctypes.c_long(37), words, top)
         assert torch.equal(out, kernels.mont_pow_plain(spec, a, e)), e
     words, top = _exponent(spec.p_minus_2)
     for lanes in (8, 37, 1):
         out = torch.empty_like(a)
-        host_lib.batch_inv_op(int(field == "fq"), _ptr(a), _ptr(out),
+        host_lib.batch_inv_op(fid, _ptr(a), _ptr(out),
                               ctypes.c_long(37), ctypes.c_long(lanes), words,
                               top)
         assert torch.equal(out, kernels.batch_inv_rows_plain(spec, a, 5)), lanes
@@ -354,20 +397,20 @@ def _chain(host_lib, op, gname, a, b, out_shape, batch, n, x=0, y=0):
     fa = _flat(a)
     fb = _flat(b) if b is not None else fa
     outs = [torch.empty(out_shape, dtype=torch.int32) for _ in fa]
-    host_lib.chain_op(op, {"G1": 1, "G2": 2}[gname], _ptrs(fa), _ptrs(fb),
+    host_lib.chain_op(op, GROUP_IDS[gname], _ptrs(fa), _ptrs(fb),
                       _ptrs(outs), ctypes.c_long(batch), ctypes.c_long(n),
                       x, y)
     return outs
 
 
-@pytest.mark.parametrize("gname", ["G1", "G2"])
+@pytest.mark.parametrize("gname", sorted(GROUP_IDS))
 def test_point_chains(host_lib, gname):
     """The window table's entries, the lane row sums, the pairwise tree
     (with its adds of the identity at n = 13, none at n = 8, a copy at
     n = 1), the Hillis-Steele prefix through two buffers and the window
     combine, against the plain versions' loops."""
     from octopuszk_tpu_torch.curves import group_ops
-    g = {"G1": bn254.G1, "G2": bn254.G2}[gname]
+    g = _group(gname)
     rng = random.Random(5)
     host = [g.host.mul(g.generator_affine, rng.randrange(1, 1 << 64))
             for _ in range(26)]

@@ -179,3 +179,17 @@ def test_fp2_mul_fp_and_predicates(fp2_pairs):
 def test_fp2_batch_inv_rows(fp2_pairs):
     rs, ts, (ra, ta), _ = fp2_pairs
     _same2(rfp2.batch_inv_rows(rs, ra, 8), fp2.batch_inv_rows(ts, ta, 8))
+
+
+def test_fp2_nonresidue_minus_1_is_the_default(fp2_pairs):
+    """The non-residue argument at -1 (BN254a's u^2 = -1) gives the words
+    of the default and of the reference's nr = -1."""
+    rs, ts, (ra, ta), (rb, tb) = fp2_pairs
+    _same2(rfp2.mul(rs, ra, rb, -1), fp2.mul(ts, ta, tb, -1))
+    _same2(rfp2.sqr(rs, ra, -1), fp2.sqr(ts, ta, -1))
+    _same2(rfp2.inv(rs, ra, -1), fp2.inv(ts, ta, -1))
+    for got, want in ((fp2.mul(ts, ta, tb, -1), fp2.mul(ts, ta, tb)),
+                      (fp2.sqr(ts, ta, -1), fp2.sqr(ts, ta)),
+                      (fp2.batch_inv_rows(ts, ta, 8, -1),
+                       fp2.batch_inv_rows(ts, ta, 8))):
+        assert all(torch.equal(x, y) for x, y in zip(got, want))

@@ -63,12 +63,16 @@ def test_every_module_and_source_is_covered():
                 "octopuszk_tpu_torch.relations.apps",
                 "octopuszk_tpu_torch.scripts.gather_experiment",
                 "octopuszk_tpu_torch.profiler.profiler",
-                "octopuszk_tpu_torch.profiler.__main__"):
+                "octopuszk_tpu_torch.profiler.__main__",
+                "octopuszk_tpu_torch.curves.family",
+                "octopuszk_tpu_torch.curves.fake",
+                "octopuszk_tpu_torch.fields.tower",
+                "octopuszk_tpu_torch.fields.host_ext"):
         assert mod in MODULES
     names = {p.name for p in SOURCES}
     assert {"ntt_kernels.cu", "ntt.cuh", "scan_kernels.cu",
             "gather_kernels.cu", "table_kernels.cu", "bucket_kernels.cu",
-            "prefix_kernels.cu", "chip_smoke.py"} <= names
+            "prefix_kernels.cu", "curve.cuh", "chip_smoke.py"} <= names
 
 
 def test_entry_points_default_to_the_card(tmp_path):
@@ -91,4 +95,44 @@ def test_entry_points_default_to_the_card(tmp_path):
     # the gather experiment is row_gather's one caller
     with pytest.raises(RuntimeError, match="CUDA"):
         gather_experiment.main(4)
+    # BN254b (zksnark-large) asks for the card too
+    with pytest.raises(RuntimeError, match="CUDA"):
+        profiler.main(["zksnark-large", "4"], events_dir=str(tmp_path))
     assert not list(tmp_path.iterdir())
+
+
+def test_bn254b_wrappers_launch_or_raise(monkeypatch):
+    """A BN254b operand on the card goes to its curve's library: with no
+    kernel library to launch from, the wrapper raises and computes
+    nothing on the CPU.  (A CPU tensor that reports ``is_cuda`` stands for
+    one on the card.)  A field or group that no curve knows raises
+    ValueError."""
+    import torch
+    from octopuszk_tpu_torch.curves.family import bn254b
+    from octopuszk_tpu_torch.fields.spec import FieldSpec, FQ_B
+    from octopuszk_tpu_torch.ops import kernels
+
+    class OnCard(torch.Tensor):
+        @property
+        def is_cuda(self):
+            return True
+
+    def no_library(curve):
+        raise RuntimeError(f"no kernel library for {curve}")
+
+    monkeypatch.setattr(kernels, "lib", no_library)
+    a = torch.zeros((8, 4), dtype=torch.int32)
+    card = a.as_subclass(OnCard)
+    with pytest.raises(RuntimeError, match="library for bn254b"):
+        kernels.mont_mul(FQ_B, card, card)
+    g = bn254b().g2
+    pt = tuple((c0.as_subclass(OnCard), c1.as_subclass(OnCard))
+               for c0, c1 in g.infinity((4,), "cpu"))
+    with pytest.raises(RuntimeError, match="library for bn254b"):
+        kernels.add_points(g.name, pt, pt)
+    # on the CPU the plain version runs
+    assert torch.equal(kernels.mont_mul(FQ_B, a, a), a)
+    with pytest.raises(ValueError, match="no kernel for group"):
+        kernels.add_points("bn254c-G1", (a, a, a), (a, a, a))
+    with pytest.raises(ValueError, match="no kernel for field"):
+        kernels._field_entry(FieldSpec("other", 7, 3, 1, 6), "oz_mont_mul")
