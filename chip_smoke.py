@@ -29,6 +29,19 @@ MSMs in the ``oracle`` line; its path and the ``zksnark-large`` app must
 launch every kernel they are built on with BN254b operands
 (``kernels.CURVE_LAUNCHES``).  Every record carries its ``curve``.
 
+The distributed prover has a path of its own (``dist``): construct at
+the same size, a mesh of four shards (``parallel/mesh.py make_mesh(4)``:
+shard i on card i % the cards present, all four on one card on a one-card
+machine; each launch on its shard's card), ``shard_r1cs`` ->
+``distributed_setup`` -> ``distributed_prove`` (the 4-step NTT with
+all-to-alls, the per-shard MSMs and their reduction) -> ``verify``; its
+proof must equal the packed path's point for point (the same seeds), a
+tampered input must be rejected, and it must launch every kernel from (a)
+to (g).  Then (``dist crs``) the distributed CRS gathered to the serial
+form (``gather_crs``) and proved by the serial prover, and the packed
+path's CRS sharded (``shard_crs``) and proved by ``distributed_prove``,
+must both give the same proof.
+
 Then it runs the port's gather experiment (``gather``: kernel i against
 ``torch.index_select`` over 2^21 rows of 128 words), checks that an index
 out of range makes kernel i fail (in child processes), and runs every
@@ -36,7 +49,10 @@ serial app of the port's profiler through ``profiler.main`` (``profiler
 <app> <log2>``, the reference's apps and printed lines, plus ``zksnark``
 with 1023 inputs; ``zksnark-large`` is Groth16 on BN254b); a verifying app
 must verify, and the ``bace`` proof is
-verified again beside a tampered one that must be rejected.
+verified again beside a tampered one that must be rejected.  Then five
+apps of the profiler's distributed form over four shards (``profiler 4
+<app> <log2>``: fft, vmsm-g1, which runs kernel h per shard, witness,
+zksnark-large, bace).
 
 Each path and app runs with the launch counts set to 0 and must launch the
 kernels it is built on.  Four variable-base MSMs (BN254a packed and
@@ -44,7 +60,7 @@ unpacked, BN254b G1 and G2 packed) are checked against python-int curve
 arithmetic.
 
 Output: one JSON object per line (``env`` with each curve's build seconds,
-one ``path`` per path,
+one ``path`` per path (``dist`` with the mesh's devices),
 ``profile``, ``oracle``, ``gather_out_of_range``, one ``profiler`` per app,
 ``launches``, ``kernels``;
 the gather experiment's and the apps' own lines between them), then the
@@ -101,6 +117,7 @@ from octopuszk_tpu_torch.fields.spec import FR
 from octopuszk_tpu_torch.models.groth16 import (
     prover, serialize, setup, verifier)
 from octopuszk_tpu_torch.ops import kernels, msm, ntt
+from octopuszk_tpu_torch.parallel import dgroth16, mesh as pmesh
 from octopuszk_tpu_torch.relations import construct
 
 QUERIES = ("query_a", "query_b_g1", "query_b_g2", "query_h", "delta_abc_g1")
@@ -167,6 +184,11 @@ REQUIRED = {
     "gather": {"row_gather"},
     # BN254b: construct, setup, a packed and an unpacked prove
     "bn254b": _GROTH16_KERNELS | {"scan_accumulate"},
+    # four shards: construct, shard, setup, prove
+    "dist": _GROTH16_KERNELS,
+    # the gathered CRS proved serially, the sharded serial CRS proved
+    # distributed
+    "dist crs": _PROVE_KERNELS | {"scan_accumulate_mixed"},
 }
 # The profiler's serial apps, as ``profiler.main`` runs them, each with the
 # kernels its path reaches; all at the main path's size but those in
@@ -187,6 +209,16 @@ PROFILER_APPS = [
     (["matmul"], _GROTH16_KERNELS),
     (["regression"], _GROTH16_KERNELS),
     (["gaussian"], _GROTH16_KERNELS),
+]
+# The distributed form over four shards, ``profiler 4 <app> <log2>``
+DIST_SHARDS = 4
+DIST_PROFILER_APPS = [
+    ([str(DIST_SHARDS), "fft"], {"ntt_block", "mont_mul"}),
+    ([str(DIST_SHARDS), "vmsm-g1"],
+     _FIXED_KERNELS | _BUCKET_KERNELS | {"scan_accumulate"}),
+    ([str(DIST_SHARDS), "witness"], {"ntt_block", "mont_mul", "mul_sub"}),
+    ([str(DIST_SHARDS), "zksnark-large"], _GROTH16_KERNELS),
+    ([str(DIST_SHARDS), "bace"], {"ntt_block", "mont_mul"}),
 ]
 # log2 steps below the main path's size, for the apps whose host work
 # outgrows the script's time budget (PERF.md): regression's verifier is a
@@ -762,8 +794,8 @@ def check_proof(name, crs, primary, proof, want, stages, extra, launches,
 
 def run_paths(dev, log2: int):
     """The three paths at 2^log2 constraints, on one CRS.  Returns the
-    launch counts per path and the packed path's CRS and assignment (for
-    ``--profile``)."""
+    launch counts per path, the packed path's CRS and assignment (for the
+    profiled prove and the ``dist`` path) and its proof."""
     ni = 3
     counts = {}
 
@@ -840,7 +872,7 @@ def run_paths(dev, log2: int):
         dev, "streamed", streamed_path)
     check_proof("streamed", loaded, primary, sproof, proof, stages,
                 {**sizes, **extra}, counts["streamed"], dev)
-    return counts, (crs, primary, aux)
+    return counts, (crs, primary, aux), proof
 
 
 def run_bn254b(dev, log2: int):
@@ -895,6 +927,88 @@ def run_bn254b(dev, log2: int):
     return launches
 
 
+def run_dist(dev, log2: int, crs, proof):
+    """The distributed prover over four shards at 2^log2 constraints on
+    BN254a: construct, ``shard_r1cs``, ``distributed_setup`` and
+    ``distributed_prove`` with the packed path's seeds, then ``verify``;
+    the proof must equal the packed path's ``proof`` and a tampered input
+    must be rejected.  Then the distributed CRS gathered and proved by the
+    serial prover, and the packed path's ``crs`` sharded and proved by
+    ``distributed_prove``: both proofs must equal it too.  Returns the
+    launch counts of both drives."""
+    ni = 3
+    mesh = pmesh.make_mesh(DIST_SHARDS)
+    devices = [str(d) for d in mesh.devices]
+
+    def dist_path():
+        stages, setup_stages, prove_stages = {}, {}, {}
+        t0 = time.perf_counter()
+        r1cs, primary, aux = construct.serial_construct(
+            (1 << log2) - ni, ni, seed=5, device=dev)
+        torch.cuda.synchronize(dev)
+        stages["construct"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sr = dgroth16.shard_r1cs(mesh, r1cs)
+        del r1cs
+        torch.cuda.synchronize(dev)
+        stages["shard_r1cs"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dcrs = dgroth16.distributed_setup(mesh, sr, seed=6,
+                                          stage_seconds=setup_stages)
+        stages["setup"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dproof = dgroth16.distributed_prove(
+            mesh, dcrs.proving_key, primary, aux, seed=7,
+            stage_seconds=prove_stages)
+        stages["prove"] = time.perf_counter() - t0
+        return (dcrs, primary, aux, dproof, stages,
+                {"setup_seconds": setup_stages, "prove_seconds": prove_stages})
+
+    (dcrs, primary, aux, dproof, stages, extra), counts = drive(
+        dev, "dist", dist_path)
+    sizes = {"constraints": (1 << log2) - ni, "inputs": ni, "curve": "bn254a",
+             "domain": 1 << log2, "shards": DIST_SHARDS, "devices": devices,
+             "query_rows_per_shard": [
+                 int(q.shape[0]) for q in dcrs.proving_key.query_a]}
+    check_proof("dist", dcrs, primary, dproof, proof, stages,
+                {**sizes, **extra}, counts, dev)
+
+    def crs_paths():
+        stages, gprove_stages, sprove_stages = {}, {}, {}
+        t0 = time.perf_counter()
+        gathered = dgroth16.gather_crs(mesh, dcrs)
+        torch.cuda.synchronize(dev)
+        stages["gather_crs"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        gproof = prover.prove(gathered.proving_key, primary, aux, seed=7,
+                              stage_seconds=gprove_stages)
+        stages["prove_gathered"] = time.perf_counter() - t0
+        del gathered
+        t0 = time.perf_counter()
+        sharded = dgroth16.shard_crs(mesh, crs)
+        torch.cuda.synchronize(dev)
+        stages["shard_crs"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sproof = dgroth16.distributed_prove(
+            mesh, sharded.proving_key, primary, aux, seed=7,
+            stage_seconds=sprove_stages)
+        stages["prove_sharded"] = time.perf_counter() - t0
+        return gproof, sproof, stages, {
+            "prove_gathered_seconds": gprove_stages,
+            "prove_sharded_seconds": sprove_stages}
+
+    (gproof, sproof, stages, extra), ccounts = drive(dev, "dist crs",
+                                                     crs_paths)
+    same_g = (gproof.a, gproof.b, gproof.c) == (proof.a, proof.b, proof.c)
+    check_proof("dist crs", crs, primary, sproof, proof, stages,
+                {**sizes, **extra, "gathered_proof_equals_packed": same_g},
+                ccounts, dev)
+    if not same_g:
+        raise SystemExit("the gathered CRS's serial proof differs from the "
+                         "packed path's")
+    return {"dist": counts, "dist crs": ccounts}
+
+
 def run_gather(dev, log2: int):
     """The port's gather experiment over 2^(log2+1) rows, as its command
     line runs it (it prints its two lines).  Returns its launch counts."""
@@ -908,20 +1022,22 @@ def run_gather(dev, log2: int):
     return launches
 
 
-def run_profiler(dev, log2: int):
-    """Every serial app of the port's profiler through ``profiler.main``
-    (each prints the reference's lines; a verifying app asserts ok), with
-    the launch counts reset per app.  After ``bace`` the same proof is
-    recomputed, verified, and a tampered one must be rejected.  Returns the
-    launch counts per app."""
+def run_profiler(dev, log2: int, apps):
+    """Apps of the port's profiler through ``profiler.main`` (each prints
+    the reference's lines; a verifying app asserts ok), with the launch
+    counts reset per app; ``apps``: (argv less the size, the kernels the
+    app must launch), the distributed form's argv led by its shard count.
+    After the serial ``bace`` the same proof is recomputed, verified, and a
+    tampered one must be rejected.  Returns the launch counts per app."""
     from octopuszk_tpu_torch.models.bace import prover as bprover, verifier as bverifier
     from octopuszk_tpu_torch.profiler import profiler
     counts = {}
     with tempfile.TemporaryDirectory() as tmp:
-        for k, (args, required) in enumerate(PROFILER_APPS):
-            app = args[0]
+        for k, (args, required) in enumerate(apps):
+            lead = 2 if args[0].isdigit() else 1        # [ndev] app
+            app = args[lead - 1]
             size = log2 - PROFILER_CUTS.get(app, 0)
-            argv = [app, str(size)] + args[1:]
+            argv = args[:lead] + [str(size)] + args[lead:]
             name = "profiler " + " ".join(argv)
             events = os.path.join(tmp, str(k))
             t0 = time.perf_counter()
@@ -938,7 +1054,7 @@ def run_profiler(dev, log2: int):
                     "seconds": seconds, "records": records,
                     "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
                     "launches": counts[name]}
-            if app == "bace":
+            if app == "bace" and lead == 1:
                 n = 1 << size
                 c = profiler.bace_circuit()
                 inputs = profiler._rand_scalars(2 * n, device=dev)
@@ -1138,19 +1254,25 @@ def main() -> int:
                                  curve="bn254b", whole=False)
         torch.cuda.empty_cache()
     with phase("paths"):
-        counts, proving_inputs = run_paths(dev, args.log2)
+        counts, proving_inputs, packed_proof = run_paths(dev, args.log2)
     with phase("path bn254b"):
         counts["bn254b"] = run_bn254b(dev, args.log2)
         torch.cuda.empty_cache()
     with phase("profile and oracle"):
         profile_prove(dev, *proving_inputs)
-        del proving_inputs
         run_oracle(dev, 1 << 12)
+    with phase("path dist"):
+        counts.update(run_dist(dev, args.log2, proving_inputs[0],
+                               packed_proof))
+        del proving_inputs, packed_proof
+        torch.cuda.empty_cache()
     with phase("gather"):
         counts["gather"] = run_gather(dev, args.log2)
         check_gather_bounds()
     with phase("profiler apps"):
-        counts.update(run_profiler(dev, args.log2))
+        counts.update(run_profiler(dev, args.log2, PROFILER_APPS))
+    with phase("profiler dist apps"):
+        counts.update(run_profiler(dev, args.log2, DIST_PROFILER_APPS))
     for r in records:              # the launches with the record's curve
         r["launches_per_path"] = {
             p: CURVE_COUNTS[p][r["curve"]][r["name"]] for p in counts}

@@ -43,7 +43,9 @@ struct GridSched {
 };
 
 // A cooperative launch of ``kernel`` with as many blocks as the level's
-// largest item count needs and the card can hold at once.
+// largest item count needs and the card can hold at once.  The card is the
+// current device, which ops/kernels.py sets to the operands' card for the
+// call, so the grid is sized for the card the launch runs on.
 template <class K>
 int launch_cooperative(K kernel, size_t items, void** args, cudaStream_t s) {
   int dev = 0, sms = 0, per_sm = 0;

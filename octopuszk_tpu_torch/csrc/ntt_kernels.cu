@@ -54,13 +54,24 @@ inline size_t smem_bytes(int log_l) {
   return (size_t)8 * ntt_smem_stride(1u << log_l) * sizeof(uint32_t);
 }
 
+constexpr int kMaxDevices = 64;
+
 template <class M, bool DIF>
 int launch(const NttArgs& a, cudaStream_t s) {
-  // the largest transform's shared copy, allowed once per instance
-  static cudaError_t allowed = cudaFuncSetAttribute(
-      ntt_block_kernel<M, DIF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem_bytes(kMaxLog));
-  if (allowed != cudaSuccess) return (int)allowed;
+  // the largest transform's shared copy, allowed once per instance and
+  // device (the attribute is the current device's)
+  static bool allowed[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (!allowed[dev]) {
+    e = cudaFuncSetAttribute(ntt_block_kernel<M, DIF>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem_bytes(kMaxLog));
+    if (e != cudaSuccess) return (int)e;
+    allowed[dev] = true;
+  }
   const int half = 1 << (a.log_l - 1);
   const int threads = half < kMaxThreads ? (half < 32 ? 32 : half)
                                          : kMaxThreads;

@@ -33,9 +33,11 @@ Each wrapper takes word tensors (``int32[8, ...]``, see fields/fp.py; the
 row gather takes rows ``int32[R, W]``).  For
 a tensor on the CPU it evaluates the plain PyTorch version beside it
 (``*_plain``); for a tensor on the card it launches its kernel on the
-current stream, without synchronising, or raises.  There is no fallback and
-no size threshold.  ``CURVE_LAUNCHES`` counts kernel launches per wrapper
-and curve, ``LAUNCHES`` per wrapper.
+card the operands lie on, on that card's current stream, without
+synchronising, or raises.  Operands on two devices raise ``ValueError`` on
+either path.  There is no fallback and no size threshold.
+``CURVE_LAUNCHES`` counts kernel launches per wrapper and curve,
+``LAUNCHES`` per wrapper.
 
 Every kernel but the row gather is one of a curve as well as of a field or
 a group: ``CURVES`` lists the curves of curves/family.py (BN254a, whose
@@ -285,8 +287,15 @@ def lib(curve: str):
     return _libs[curve]
 
 
-def _stream():
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+def _launch(fn, device, *args):
+    """Call entry point ``fn`` with ``args`` and a stream on ``device``,
+    the card the operands lie on: it is made the current device for the
+    call (the launch, and a cooperative launch's grid size, follow the
+    current device), and the stream is that device's current stream.
+    Returns the entry point's code."""
+    with torch.cuda.device(device):
+        return fn(*args, ctypes.c_void_p(
+            torch.cuda.current_stream(device).cuda_stream))
 
 
 def _check(rc: int, name: str):
@@ -373,8 +382,8 @@ def mont_mul(spec: FieldSpec, a, b):
     if out.numel() == 0:            # nothing to launch, nothing counted
         return out
     fn, fid, curve = _field_entry(spec, "oz_mont_mul")
-    rc = fn(fid, a.data_ptr(), b.data_ptr(), out.data_ptr(), _count(a),
-            _stream())
+    rc = _launch(fn, a.device, fid, a.data_ptr(), b.data_ptr(),
+                 out.data_ptr(), _count(a))
     _check(rc, "mont_mul")
     CURVE_LAUNCHES[curve]["mont_mul"] += 1
     return out
@@ -393,8 +402,8 @@ def mul_sub(spec: FieldSpec, a, b, c):
     if out.numel() == 0:
         return out
     fn, fid, curve = _field_entry(spec, "oz_mul_sub")
-    rc = fn(fid, a.data_ptr(), b.data_ptr(), c.data_ptr(), out.data_ptr(),
-            _count(a), _stream())
+    rc = _launch(fn, a.device, fid, a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                 out.data_ptr(), _count(a))
     _check(rc, "mul_sub")
     CURVE_LAUNCHES[curve]["mul_sub"] += 1
     return out
@@ -418,8 +427,8 @@ def butterfly(spec: FieldSpec, a, b, w, dif: bool):
     if o0.numel() == 0:
         return o0, o1
     fn, fid, curve = _field_entry(spec, "oz_butterfly")
-    rc = fn(fid, int(bool(dif)), a.data_ptr(), b.data_ptr(), w.data_ptr(),
-            o0.data_ptr(), o1.data_ptr(), _count(a), _stream())
+    rc = _launch(fn, a.device, fid, int(bool(dif)), a.data_ptr(), b.data_ptr(),
+                 w.data_ptr(), o0.data_ptr(), o1.data_ptr(), _count(a))
     _check(rc, "butterfly")
     CURVE_LAUNCHES[curve]["butterfly"] += 1
     return o0, o1
@@ -538,12 +547,12 @@ def ntt_block(spec: FieldSpec, x, tw, dif: bool, pre=None, post=None):
         strides += [0, 0, 0, 0] if t is None else list(t.stride())
     inner = x.shape[3]
     fn, fid, curve = _field_entry(spec, "oz_ntt_block")
-    rc = fn(
-        fid, int(bool(dif)), x.data_ptr(),
+    rc = _launch(
+        fn, out.device, fid, int(bool(dif)), x.data_ptr(),
         None if pre_v is None else pre_v.data_ptr(),
         None if post_v is None else post_v.data_ptr(),
         (ctypes.c_longlong * 12)(*strides), tw.data_ptr(), out.data_ptr(),
-        L.bit_length() - 1, out.numel() // (NUM_WORDS * L), inner, _stream())
+        L.bit_length() - 1, out.numel() // (NUM_WORDS * L), inner)
     _check(rc, "ntt_block")
     CURVE_LAUNCHES[curve]["ntt_block"] += 1
     return out
@@ -592,8 +601,8 @@ def mont_pow(spec: FieldSpec, a, e: int):
     if out.numel() == 0:
         return out
     fn, fid, curve = _field_entry(spec, "oz_mont_pow")
-    rc = fn(fid, a.data_ptr(), out.data_ptr(), _count(a), words, top,
-            _stream())
+    rc = _launch(fn, a.device, fid, a.data_ptr(), out.data_ptr(), _count(a),
+                 words, top)
     _check(rc, "mont_pow")
     CURVE_LAUNCHES[curve]["mont_pow"] += 1
     return out
@@ -648,8 +657,8 @@ def batch_inv_rows(spec: FieldSpec, a):
         return out
     words, top = _exponent(spec.p_minus_2)
     fn, fid, curve = _field_entry(spec, "oz_batch_inv_rows")
-    rc = fn(fid, a.data_ptr(), out.data_ptr(), n, min(INV_LANES, n), words,
-            top, _stream())
+    rc = _launch(fn, a.device, fid, a.data_ptr(), out.data_ptr(), n,
+                 min(INV_LANES, n), words, top)
     _check(rc, "batch_inv_rows")
     CURVE_LAUNCHES[curve]["batch_inv_rows"] += 1
     return out
@@ -707,8 +716,8 @@ def add_points(group_name: str, p, q):
     if outs[0].numel() == 0:
         return rebuild_coords(outs, cd)
     fn, curve = _group_entry(group_name, "oz_add_points")
-    rc = fn(cd, _addr_array(fp_), _addr_array(fq_), _addr_array(outs),
-            _count(fp_[0]), _stream())
+    rc = _launch(fn, fp_[0].device, cd, _addr_array(fp_), _addr_array(fq_),
+                 _addr_array(outs), _count(fp_[0]))
     _check(rc, "add_points")
     CURVE_LAUNCHES[curve]["add_points"] += 1
     return rebuild_coords(outs, cd)
@@ -749,8 +758,8 @@ def double_points(group_name: str, p, times: int = 1,
     if outs[0].numel() == 0:
         return rebuild_coords(outs, cd)
     fn, curve = _group_entry(group_name, "oz_double_points")
-    rc = fn(cd, _addr_array(fp_), _addr_array(outs), _count(fp_[0]), times,
-            int(bool(every_step)), _stream())
+    rc = _launch(fn, fp_[0].device, cd, _addr_array(fp_), _addr_array(outs),
+                 _count(fp_[0]), times, int(bool(every_step)))
     _check(rc, "double_points")
     CURVE_LAUNCHES[curve]["double_points"] += 1
     return rebuild_coords(outs, cd)
@@ -782,26 +791,27 @@ def window_table_plain(group_name: str, base, powers, w: int, outerc: int):
     """The masked loop: per window a row of 2^w identities; for each bit
     b, [2^(win w + b)] G (``base`` for j = 0, ``powers[..., j - 1]``
     after) is added to every entry and kept where bit b of the entry's
-    digit is set."""
+    digit is set.  The windows are independent and run as one batch."""
     from octopuszk_tpu_torch.curves import group_ops
     ops = plain_ops(group_name)
     B = 1 << w
     dev = group_ops.leaf(base).device
     iota = torch.arange(B, device=dev)
-    rows = []
-    for win in range(outerc):
-        row = group_ops.infinity(ops, (B,), dev)
-        for b in range(w):
-            j = win * w + b
-            has_bit = ((iota >> b) & 1) == 1
-            g_b = group_ops._map_coords(
-                base, lambda c: c.reshape(NUM_WORDS, 1)) if j == 0 else \
-                group_ops._map_coords(powers, lambda c: c[..., j - 1:j])
-            row = group_ops.select_point(
-                ops, has_bit, add_points_plain(group_name, row, g_b), row)
-        rows.append(group_ops.flatten_coords(row))
-    return group_ops.rebuild_coords(
-        [torch.stack(cs, dim=1) for cs in zip(*rows)], ops.coord_dim)
+    # [2^j] G for j = 0 .. outerc w - 1: base, then powers
+    allp = [torch.cat([g.reshape(NUM_WORDS, 1), p[..., :outerc * w - 1]],
+                      dim=-1)
+            for g, p in zip(group_ops.flatten_coords(base),
+                            group_ops.flatten_coords(powers))]
+    first = torch.arange(outerc, device=dev) * w
+    row = group_ops.infinity(ops, (outerc, B), dev)
+    for b in range(w):
+        has_bit = ((iota >> b) & 1) == 1
+        g_b = group_ops.rebuild_coords(
+            [c[:, first + b, None].expand(NUM_WORDS, outerc, B)
+             for c in allp], ops.coord_dim)
+        row = group_ops.select_point(
+            ops, has_bit, add_points_plain(group_name, row, g_b), row)
+    return row
 
 
 def window_table(group_name: str, base, powers, w: int, outerc: int):
@@ -830,8 +840,8 @@ def window_table(group_name: str, base, powers, w: int, outerc: int):
     fb = [c.reshape(NUM_WORDS, 1) for c in fb]
     outs = _points_out(fb, (NUM_WORDS, outerc, 1 << w))
     fn, curve = _group_entry(group_name, "oz_window_table")
-    rc = fn(cd, _addr_array(fb), _addr_array(fpw), fpw[0].shape[1], w, outerc,
-            _addr_array(outs), _stream())
+    rc = _launch(fn, fb[0].device, cd, _addr_array(fb), _addr_array(fpw),
+                 fpw[0].shape[1], w, outerc, _addr_array(outs))
     _check(rc, "window_table")
     CURVE_LAUNCHES[curve]["window_table"] += 1
     return rebuild_coords(outs, cd)
@@ -869,8 +879,8 @@ def combine_windows(group_name: str, wins, c: int):
     if batch == 0:
         return rebuild_coords(outs, cd)
     fn, curve = _group_entry(group_name, "oz_combine_windows")
-    rc = fn(cd, _addr_array(comps), batch, num_win, c, _addr_array(outs),
-            _stream())
+    rc = _launch(fn, comps[0].device, cd, _addr_array(comps), batch, num_win,
+                 c, _addr_array(outs))
     _check(rc, "combine_windows")
     CURVE_LAUNCHES[curve]["combine_windows"] += 1
     return rebuild_coords(outs, cd)
@@ -914,8 +924,8 @@ def lane_row_sums(group_name: str, p, width: int):
     if batch == 0:
         return rebuild_coords(outs, cd)
     fn, curve = _group_entry(group_name, "oz_lane_row_sums")
-    rc = fn(cd, _addr_array(comps), batch, n, width, _addr_array(outs),
-            _stream())
+    rc = _launch(fn, comps[0].device, cd, _addr_array(comps), batch, n, width,
+                 _addr_array(outs))
     _check(rc, "lane_row_sums")
     CURVE_LAUNCHES[curve]["lane_row_sums"] += 1
     return rebuild_coords(outs, cd)
@@ -962,8 +972,9 @@ def _levels_launch(group_name, p, name, out_shape):
     scratch = _points_out(comps, comps[0].shape)
     count = torch.zeros(1, dtype=torch.int32, device=comps[0].device)
     fn, curve = _group_entry(group_name, "oz_" + name)
-    rc = fn(cd, _addr_array(comps), _addr_array(scratch), batch, n,
-            _addr_array(outs), count.data_ptr(), _stream())
+    rc = _launch(fn, comps[0].device, cd, _addr_array(comps),
+                 _addr_array(scratch), batch, n, _addr_array(outs),
+                 count.data_ptr())
     _check(rc, name)
     CURVE_LAUNCHES[curve][name] += 1
     return rebuild_coords(outs, cd)
@@ -1049,8 +1060,9 @@ def _scan_launch(group_name, packed, idx2, write_prefix, name):
         return rebuild_coords(outs, cd)
     sb, sr, sl = idx2.stride()
     fn, curve = _group_entry(group_name, "oz_scan_mixed")
-    rc = fn(cd, int(write_prefix), packed.data_ptr(), idx2.data_ptr(), sb, sr,
-            sl, batch, rows, lanes, _addr_array(outs), _stream())
+    rc = _launch(fn, packed.device, cd, int(write_prefix), packed.data_ptr(),
+                 idx2.data_ptr(), sb, sr, sl, batch, rows, lanes,
+                 _addr_array(outs))
     _check(rc, name)
     CURVE_LAUNCHES[curve][name] += 1
     return rebuild_coords(outs, cd)
@@ -1167,8 +1179,8 @@ def scan_accumulate(group_name: str, points, idx):
         return rebuild_coords(outs, cd)
     sb, sr, sl = idx.stride()
     fn, curve = _group_entry(group_name, "oz_scan_full")
-    rc = fn(cd, rows_t.data_ptr(), idx.data_ptr(), sb, sr, sl, batch, rows,
-            lanes, _addr_array(outs), _stream())
+    rc = _launch(fn, rows_t.device, cd, rows_t.data_ptr(), idx.data_ptr(), sb,
+                 sr, sl, batch, rows, lanes, _addr_array(outs))
     _check(rc, "scan_accumulate")
     CURVE_LAUNCHES[curve]["scan_accumulate"] += 1
     return rebuild_coords(outs, cd)
@@ -1213,9 +1225,9 @@ def row_gather(table, idx):
         return out
     if table.shape[0] == 0:
         raise IndexError("gather from an empty table")
-    rc = lib(GATHER_CURVE).oz_row_gather(table.data_ptr(), table.shape[0], idx.data_ptr(),
-                             idx.shape[0], table.shape[1], out.data_ptr(),
-                             _stream())
+    rc = _launch(lib(GATHER_CURVE).oz_row_gather, table.device,
+                 table.data_ptr(), table.shape[0], idx.data_ptr(),
+                 idx.shape[0], table.shape[1], out.data_ptr())
     _check(rc, "row_gather")
     CURVE_LAUNCHES[GATHER_CURVE]["row_gather"] += 1
     return out

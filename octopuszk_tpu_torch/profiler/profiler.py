@@ -1,17 +1,16 @@
 """Profiler CLI: per-kernel and end-to-end size sweeps on the card.
 
-Port of ``octopuszk_tpu/profiler/profiler.py``, serial form:
-``python -m octopuszk_tpu_torch.profiler <app> <log2size> [--inputs=N]``.
-The app names, the workloads (the same seeds and draws as the reference)
-and the printed lines are the reference's: fft, lagrange, fmsm-g1,
-fmsm-g2, vmsm-g1, vmsm-g2, relation, witness, zksnark, zksnark-large
-(Groth16 on the second curve, BN254b), bace, matmul, regression,
-gaussian.  Each app's timings are appended to ``<events_dir>/<app>.csv``
-(utils/config.py).
-
-Not yet in the port: the distributed form ``<ndev> <app> <log2size>``;
-for it ``main`` says which ROADMAP item it waits for and returns 1, as for
-an unknown app.
+Port of ``octopuszk_tpu/profiler/profiler.py``: serial
+``python -m octopuszk_tpu_torch.profiler <app> <log2size> [--inputs=N]``
+and distributed ``python -m octopuszk_tpu_torch.profiler <ndev> <app>
+<log2size>`` over a mesh of ndev shards (parallel/mesh.py: shard i on card
+i % the cards present, so several shards may share one card).  The app
+names, the workloads (the same seeds and draws as the reference) and the
+printed lines are the reference's: fft, lagrange, fmsm-g1, fmsm-g2,
+vmsm-g1, vmsm-g2, relation, witness, zksnark, zksnark-large (Groth16 on
+the second curve, BN254b), bace, matmul, regression, gaussian, in both
+forms.  Each app's timings are appended to ``<events_dir>/<app>.csv``
+(utils/config.py; the ``devices`` column carries ndev).
 """
 
 from __future__ import annotations
@@ -52,18 +51,21 @@ def _rand_packed(group, n, device, seed=1, chunk_log=22):
     return torch.cat(packs, dim=0) if len(packs) > 1 else packs[0]
 
 
-def _force(device):
-    """Wait for the card's queued work (a no-op on the CPU)."""
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+def _force(where):
+    """Wait for the queued work of a device, or of every card of a mesh (a
+    no-op on the CPU)."""
+    for device in set(getattr(where, "devices", (where,))):
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
 
 
-def _timed(config, name, fn, size, device):
+def _timed(config, name, fn, size, where):
+    """``where``: the app's device, or its mesh."""
     fn()                    # warm-up
-    _force(device)
+    _force(where)
     config.begin_runtime(name)
     fn()
-    _force(device)
+    _force(where)
     dt = config.end_runtime(name)
     print(f"{name} size=2^{size.bit_length()-1}: {dt:.4f}s", flush=True)
     return dt
@@ -271,14 +273,215 @@ APPS = {
     "gaussian": profile_gaussian,
 }
 
-DISTRIBUTED = ("the distributed form <ndev> <app> <log2size> waits for "
-               "ROADMAP.md queue 1 item 8 (distributed)")
+# ---------------------------------------------------------------------------
+# the distributed apps: the reference's over a mesh of shards
+# ---------------------------------------------------------------------------
+
+def _dev0(mesh):
+    """The first shard's device, where an app's inputs are made."""
+    return mesh.devices[0]
+
+
+def dprofile_fft(config, mesh, n):
+    from octopuszk_tpu_torch.fields.spec import FR
+    from octopuszk_tpu_torch.parallel import dntt, mesh as pmesh
+    x = pmesh.shard_vector(mesh, _rand_scalars(n, device=_dev0(mesh)))
+    _timed(config, "dist-fft",
+            lambda: dntt.distributed_ntt(mesh, FR, x), n, mesh)
+    _timed(config, "dist-ifft",
+            lambda: dntt.distributed_ntt(mesh, FR, x, inverse=True), n, mesh)
+
+
+def dprofile_lagrange(config, mesh, n):
+    from octopuszk_tpu_torch.fields.spec import FR
+    from octopuszk_tpu_torch.parallel import dgroth16
+    _timed(config, "dist-lagrange",
+            lambda: dgroth16.distributed_lagrange(mesh, FR, n, 12345678), n,
+            mesh)
+
+
+def dprofile_fmsm(config, mesh, n, which):
+    from octopuszk_tpu_torch.parallel import dmsm, mesh as pmesh
+    grp = _group(which)
+    base = pmesh.replicate_point(
+        mesh, grp.point_to_device(grp.generator_affine, _dev0(mesh)))
+    s = pmesh.shard_vector(mesh, _rand_scalars(n, device=_dev0(mesh)))
+    _timed(config, f"dist-fixed-msm-{which}",
+            lambda: dmsm.distributed_fixed_base_msm(mesh, grp, base, s), n,
+            mesh)
+
+
+def _rand_points(group, n, device, seed=1):
+    """n pseudo-random projective points: [s_i] G for the seed's
+    scalars."""
+    from octopuszk_tpu_torch.ops import msm
+    return msm.fixed_base_msm(
+        group, group.point_to_device(group.generator_affine, device),
+        _rand_scalars(n, seed, device))
+
+
+def dprofile_vmsm(config, mesh, n, which):
+    from octopuszk_tpu_torch.parallel import dmsm, mesh as pmesh
+    grp = _group(which)
+    pts = pmesh.shard_point_batch(mesh, _rand_points(grp, n, _dev0(mesh)))
+    s = pmesh.shard_vector(mesh, _rand_scalars(n, seed=2,
+                                               device=_dev0(mesh)))
+    dt = _timed(config, f"dist-var-msm-{which}",
+                 lambda: dmsm.distributed_pippenger(mesh, grp, pts, s), n,
+                 mesh)
+    print(f"throughput: {n / dt:.0f} points/s", flush=True)
+
+
+def dprofile_witness(config, mesh, n):
+    from octopuszk_tpu_torch.fields.spec import FR
+    from octopuszk_tpu_torch.parallel import dgroth16, mesh as pmesh
+    from octopuszk_tpu_torch.reductions.r1cs_to_qap import domain_size
+    from octopuszk_tpu_torch.relations import construct
+    from octopuszk_tpu_torch.relations.r1cs import assignment_to_device
+    r1cs, primary, aux = construct.serial_construct(n - 3, 3,
+                                                    device=_dev0(mesh))
+    sr = dgroth16.shard_r1cs(mesh, r1cs)
+    dom = domain_size(r1cs)
+    full = primary + aux
+    m_pad = len(full) + (-len(full)) % mesh.size
+    z = pmesh.shard_vector(mesh, assignment_to_device(
+        FR, full + [0] * (m_pad - len(full)), _dev0(mesh)))
+    _timed(config, "dist-qap-witness",
+            lambda: dgroth16.distributed_witness(mesh, FR, sr, dom, z), n,
+            mesh)
+
+
+def _dgroth16(config, mesh, r1cs, primary, aux, names, curve=None,
+              warm=False):
+    """Distributed setup, (a warm-up prove,) a timed prove and verify;
+    ``names``: the setup's and the prove's runtime records."""
+    from octopuszk_tpu_torch.models.groth16 import verifier
+    from octopuszk_tpu_torch.parallel import dgroth16
+    sr = dgroth16.shard_r1cs(mesh, r1cs)
+    config.begin_runtime(names[0])
+    crs = dgroth16.distributed_setup(mesh, sr, seed=config.seed, curve=curve)
+    _force(mesh)
+    print(f"setup: {config.end_runtime(names[0]):.3f}s", flush=True)
+    if warm:
+        dgroth16.distributed_prove(mesh, crs.proving_key, primary, aux,
+                                   curve=curve)
+    config.begin_runtime(names[1])
+    proof = dgroth16.distributed_prove(mesh, crs.proving_key, primary, aux,
+                                       curve=curve)
+    _force(mesh)
+    print(f"prove: {config.end_runtime(names[1]):.3f}s", flush=True)
+    ok = verifier.verify(crs.verification_key, primary, proof, curve=curve)
+    print(f"verify ok={ok}", flush=True)
+    return ok
+
+
+def dprofile_zksnark(config, mesh, n):
+    from octopuszk_tpu_torch.relations import construct
+    r1cs, primary, aux = construct.serial_construct(n - 3, 3,
+                                                    device=_dev0(mesh))
+    _require(_dgroth16(config, mesh, r1cs, primary, aux,
+                       ("dist-setup", "dist-prove"), warm=True), "zksnark")
+
+
+def dprofile_relation(config, mesh, n):
+    from octopuszk_tpu_torch.fields.spec import FR
+    from octopuszk_tpu_torch.parallel import dgroth16
+    from octopuszk_tpu_torch.relations import construct
+    r1cs, _, _ = construct.serial_construct(n - 3, 3, device=_dev0(mesh))
+    sr = dgroth16.shard_r1cs(mesh, r1cs)
+    _timed(config, "dist-qap-relation",
+            lambda: dgroth16.distributed_qap_instance(
+                mesh, FR, sr, 987654321, n), n, mesh)
+
+
+def dprofile_zksnark_large(config, mesh, n):
+    """Distributed Groth16 on the second curve family, BN254b."""
+    from octopuszk_tpu_torch.curves.family import bn254b
+    from octopuszk_tpu_torch.relations import construct
+    curve = bn254b()
+    r1cs, primary, aux = construct.serial_construct(
+        n - 3, 3, spec=curve.fr, device=_dev0(mesh))
+    _require(_dgroth16(config, mesh, r1cs, primary, aux,
+                       ("dist-setup-bn254b", "dist-prove-bn254b"),
+                       curve=curve), "zksnark-large")
+
+
+def _dprove_app(config, mesh, r1cs, primary, aux, name):
+    """Distributed setup -> prove -> verify with the config's seed, as one
+    runtime record."""
+    from octopuszk_tpu_torch.models.groth16 import verifier
+    from octopuszk_tpu_torch.parallel import dgroth16
+    sr = dgroth16.shard_r1cs(mesh, r1cs)
+    config.begin_runtime(name)
+    crs = dgroth16.distributed_setup(mesh, sr, seed=config.seed)
+    proof = dgroth16.distributed_prove(mesh, crs.proving_key, primary, aux)
+    ok = verifier.verify(crs.verification_key, primary, proof)
+    dt = config.end_runtime(name)
+    print(f"{name} setup+prove+verify: {dt:.3f}s ok={ok}", flush=True)
+    _require(ok, name)
+
+
+def dprofile_matmul(config, mesh, n):
+    from octopuszk_tpu_torch.relations import apps
+    dim = max(2, round(math.pow(n / 2, 1 / 3)))
+    r1cs, primary, aux = apps.matmul_construct(dim, dim, dim,
+                                               device=_dev0(mesh))
+    print(f"matmul {dim}^3: {r1cs.num_constraints} constraints", flush=True)
+    _dprove_app(config, mesh, r1cs, primary, aux, "dist-matmul")
+
+
+def dprofile_lr(config, mesh, n):
+    from octopuszk_tpu_torch.relations import apps
+    d = max(2, n.bit_length() - 1)
+    rows = max(2, n // (d + 2))
+    r1cs, primary, aux = apps.lr_construct(rows, d, device=_dev0(mesh))
+    print(f"lr {rows}x{d}: {r1cs.num_constraints} constraints", flush=True)
+    _dprove_app(config, mesh, r1cs, primary, aux, "dist-regression")
+
+
+def dprofile_gaussian(config, mesh, n):
+    from octopuszk_tpu_torch.relations import apps
+    d = max(2, n.bit_length() // 2)
+    rows = max(2, n // (d * d))
+    r1cs, primary, aux = apps.gaussian_construct(rows, d, device=_dev0(mesh))
+    print(f"gaussian {rows}x{d}: {r1cs.num_constraints} constraints",
+          flush=True)
+    _dprove_app(config, mesh, r1cs, primary, aux, "dist-gaussian")
+
+
+def dprofile_bace(config, mesh, n):
+    from octopuszk_tpu_torch.fields.spec import FR
+    from octopuszk_tpu_torch.parallel import dbace
+    c = bace_circuit()
+    inputs = _rand_scalars(2 * n, device=_dev0(mesh))
+    _timed(config, "dist-bace-prove",
+            lambda: dbace.distributed_compute_proof(mesh, FR, c, inputs, n),
+            n, mesh)
+
+
+DIST_APPS = {
+    "fft": dprofile_fft,
+    "lagrange": dprofile_lagrange,
+    "fmsm-g1": lambda c, m, n: dprofile_fmsm(c, m, n, "g1"),
+    "fmsm-g2": lambda c, m, n: dprofile_fmsm(c, m, n, "g2"),
+    "vmsm-g1": lambda c, m, n: dprofile_vmsm(c, m, n, "g1"),
+    "vmsm-g2": lambda c, m, n: dprofile_vmsm(c, m, n, "g2"),
+    "relation": dprofile_relation,
+    "witness": dprofile_witness,
+    "zksnark": dprofile_zksnark,
+    "zksnark-large": dprofile_zksnark_large,
+    "bace": dprofile_bace,
+    "matmul": dprofile_matmul,
+    "regression": dprofile_lr,
+    "gaussian": dprofile_gaussian,
+}
 
 
 def main(argv=None, device=None, events_dir=None):
-    """Run one app; returns the exit code.  ``device``: None is the card
-    (raises without one); ``events_dir``: where the CSV goes (default
-    Config's)."""
+    """Run one app, serial (``<app> <log2>``) or distributed (``<ndev>
+    <app> <log2>``); returns the exit code.  ``device``: None is the card
+    (raises without one; a mesh's shards go round the cards present);
+    ``events_dir``: where the CSV goes (default Config's)."""
     argv = list(argv) if argv is not None else sys.argv[1:]
     inputs = ZKSNARK_INPUTS
     for fl in [a for a in argv if a.startswith("--")]:
@@ -288,23 +491,36 @@ def main(argv=None, device=None, events_dir=None):
             print(f"unknown flag {fl}")
             return 1
     argv = [a for a in argv if not a.startswith("--")]
-    if len(argv) == 3:
-        print(DISTRIBUTED)
-        return 1
-    if len(argv) != 2:
-        print("Args: {app} {size (log2)} [--inputs=N]  "
-              f"serial apps: {', '.join(APPS)}")
-        return 1
-    app, log2 = argv[0].lower(), int(argv[1])
-    if app not in APPS:
-        print(f"unknown app {app}; apps: {', '.join(APPS)}")
-        return 1
-    dev = _device.resolve(device)
-    config = Config() if events_dir is None else Config(events_dir=events_dir)
-    n = 1 << log2
-    if app == "zksnark":
-        profile_zksnark(config, n, dev, inputs)
+    events = {} if events_dir is None else {"events_dir": events_dir}
+    if len(argv) == 2:
+        app, log2 = argv[0].lower(), int(argv[1])
+        if app not in APPS:
+            print(f"unknown app {app}; apps: {', '.join(APPS)}")
+            return 1
+        dev = _device.resolve(device)
+        config = Config(**events)
+        n = 1 << log2
+        if app == "zksnark":
+            profile_zksnark(config, n, dev, inputs)
+        else:
+            APPS[app](config, n, dev)
+    elif len(argv) == 3:
+        from octopuszk_tpu_torch.parallel import mesh as pmesh
+        ndev, app, log2 = int(argv[0]), argv[1].lower(), int(argv[2])
+        if app not in DIST_APPS:
+            print(f"unknown distributed app {app}; "
+                  f"apps: {', '.join(DIST_APPS)}")
+            return 1
+        mesh = pmesh.make_mesh(ndev, device)
+        print(f"mesh: {ndev} shards on {[str(d) for d in mesh.devices]}",
+              flush=True)
+        config = Config(num_devices=ndev, num_partitions=ndev, **events)
+        n = 1 << log2
+        DIST_APPS[app](config, mesh, n)
     else:
-        APPS[app](config, n, dev)
+        print("Args: [numDevices] {app} {size (log2)} [--inputs=N]  "
+              f"serial apps: {', '.join(APPS)}  "
+              f"distributed apps: {', '.join(DIST_APPS)}")
+        return 1
     config.write_runtime_log(app, n)
     return 0

@@ -67,7 +67,12 @@ def test_every_module_and_source_is_covered():
                 "octopuszk_tpu_torch.curves.family",
                 "octopuszk_tpu_torch.curves.fake",
                 "octopuszk_tpu_torch.fields.tower",
-                "octopuszk_tpu_torch.fields.host_ext"):
+                "octopuszk_tpu_torch.fields.host_ext",
+                "octopuszk_tpu_torch.parallel.mesh",
+                "octopuszk_tpu_torch.parallel.dntt",
+                "octopuszk_tpu_torch.parallel.dmsm",
+                "octopuszk_tpu_torch.parallel.dgroth16",
+                "octopuszk_tpu_torch.parallel.dbace"):
         assert mod in MODULES
     names = {p.name for p in SOURCES}
     assert {"ntt_kernels.cu", "ntt.cuh", "scan_kernels.cu",
@@ -98,6 +103,12 @@ def test_entry_points_default_to_the_card(tmp_path):
     # BN254b (zksnark-large) asks for the card too
     with pytest.raises(RuntimeError, match="CUDA"):
         profiler.main(["zksnark-large", "4"], events_dir=str(tmp_path))
+    # and so does a mesh, and the distributed form
+    from octopuszk_tpu_torch.parallel import mesh as pmesh
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pmesh.make_mesh(4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        profiler.main(["4", "zksnark", "4"], events_dir=str(tmp_path))
     assert not list(tmp_path.iterdir())
 
 

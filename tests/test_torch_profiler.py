@@ -72,7 +72,7 @@ def test_app_runs_and_writes_the_csv(app, tmp_path, capsys):
 
 @pytest.mark.parametrize("argv,message", [
     (["nope", "4"], "unknown app nope"),
-    (["4", "fft", "4"], "ROADMAP.md queue 1 item 8"),
+    (["4", "nope", "4"], "unknown distributed app nope"),
     (["fft", "4", "--bogus"], "unknown flag --bogus"),
     (["fft"], "Args:"),
 ])
