@@ -42,6 +42,24 @@ form (``gather_crs``) and proved by the serial prover, and the packed
 path's CRS sharded (``shard_crs``) and proved by ``distributed_prove``,
 must both give the same proof.
 
+The reference's test fields, which belong to no curve (SMALL, a 62-bit
+NTT prime; LARGE, the 255-bit BLS12-381 scalar field), have a kernel
+library of their own (``kernels.TEST_FIELDS``: the field kernels only),
+their own records at BN254a's field shapes and a path (``test fields``:
+at 2^20 elements each, ntt -> intt and coset_ntt -> coset_intt round
+trips, the NTTs at three points against python ints, H = A B - C through
+``mul_sub``, ``batch_inv_rows`` and ``inv`` times their input equal to
+one, ``pow_const``, a sample of 4,096 of each result against python ints;
+every field kernel must launch with the test fields' operands).  The
+``mxu`` phase runs the port's tensor-core Montgomery experiment
+(``scripts/mxu_experiment.py``: kernel b against ``ops/mxu_mont.py``,
+BN254a Fr and Fq at 2^20, equal over the whole batch, its lines printed
+as the script prints them).  The ``native`` line (before the kernel
+records) times the host marshaling of 2^20 ints with the native library
+(``utils/native.py``, built beside the kernels) and with numpy, says the
+words are equal and which one the prover's ``assignment`` stage takes
+(numpy's: ``bigint.ints_to_words``).
+
 Then it runs the port's gather experiment (``gather``: kernel i against
 ``torch.index_select`` over 2^21 rows of 128 words), checks that an index
 out of range makes kernel i fail (in child processes), and runs every
@@ -59,8 +77,9 @@ kernels it is built on.  Four variable-base MSMs (BN254a packed and
 unpacked, BN254b G1 and G2 packed) are checked against python-int curve
 arithmetic.
 
-Output: one JSON object per line (``env`` with each curve's build seconds,
-one ``path`` per path (``dist`` with the mesh's devices),
+Output: one JSON object per line (``env`` with each library's build
+seconds, ``native``, one ``path`` per path (``dist`` with the mesh's
+devices; ``test fields`` with its checks per field; ``mxu``),
 ``profile``, ``oracle``, ``gather_out_of_range``, one ``profiler`` per app,
 ``launches``, ``kernels``;
 the gather experiment's and the apps' own lines between them), then the
@@ -113,12 +132,14 @@ import torch
 
 from octopuszk_tpu_torch.curves import bn254, host_curve
 from octopuszk_tpu_torch.curves.family import bn254b
+from octopuszk_tpu_torch.fields import fp
 from octopuszk_tpu_torch.fields.spec import FR
 from octopuszk_tpu_torch.models.groth16 import (
     prover, serialize, setup, verifier)
 from octopuszk_tpu_torch.ops import kernels, msm, ntt
 from octopuszk_tpu_torch.parallel import dgroth16, mesh as pmesh
 from octopuszk_tpu_torch.relations import construct
+from octopuszk_tpu_torch.utils import bigint, native
 
 QUERIES = ("query_a", "query_b_g1", "query_b_g2", "query_h", "delta_abc_g1")
 
@@ -189,6 +210,11 @@ REQUIRED = {
     # the gathered CRS proved serially, the sharded serial CRS proved
     # distributed
     "dist crs": _PROVE_KERNELS | {"scan_accumulate_mixed"},
+    # the test fields' NTTs, products, chains and H = A B - C
+    "test fields": {"ntt_block", "mont_mul", "mul_sub", "mont_pow",
+                    "batch_inv_rows"},
+    # the tensor-core experiment's baseline, kernel (b)
+    "mxu": {"mont_mul"},
 }
 # The profiler's serial apps, as ``profiler.main`` runs them, each with the
 # kernels its path reaches; all at the main path's size but those in
@@ -223,8 +249,8 @@ DIST_PROFILER_APPS = [
 # log2 steps below the main path's size, for the apps whose host work
 # outgrows the script's time budget (PERF.md): regression's verifier is a
 # python-int MSM over every public input, about 0.95 x its constraints
-# (249,053 at 2^18: 244-344 s of the script), gaussian took 116 s at 2^20
-# and matmul 22-28 s
+# (249,053 at 2^18: 156-361 s of the script, whose host time doubles
+# between calls), gaussian took 116 s at 2^20 and matmul 22-28 s
 PROFILER_CUTS = {"regression": 2, "gaussian": 2, "matmul": 2}
 # the apps that run on BN254b: their kernels must launch with its operands
 PROFILER_CURVES = {"zksnark-large": "bn254b"}
@@ -278,6 +304,20 @@ def rand_field(gen, shape, dev):
     return w
 
 
+def rand_elems(gen, spec, shape, dev):
+    """Canonical elements of any field, int32[8, *shape], over all of [0,
+    p): random words below 2^b (b the modulus's bits, so below 2p), then
+    one conditional subtract of p."""
+    bits = spec.p.bit_length()
+    w = torch.randint(-2**31, 2**31, (8,) + tuple(shape), dtype=torch.int64,
+                      device=dev, generator=gen) & 0xFFFFFFFF
+    full, rest = divmod(bits, 32)
+    if full < 8:
+        w[full] &= (1 << rest) - 1
+        w[full + 1:] = 0
+    return fp._i32(fp._cond_sub_p(spec, w))
+
+
 def rand_point(gen, cd, shape, dev):
     """Three (G1) or six (G2) random coordinate components.  The formulas
     are polynomial, so kernel and plain version must agree on any field
@@ -312,31 +352,23 @@ def same(a, b) -> bool:
 # phase: every kernel against its plain version
 # ---------------------------------------------------------------------------
 
+def mads_per_product(spec) -> int:
+    """The mad.lo / mad.hi pairs of a CIOS Montgomery product of the
+    field's own width, w = ceil(bits / 32) words: w^2 for a * b and w^2
+    for m * p, two MADs each (MADS_PER_MONT_MUL at w = 8)."""
+    w = -(-spec.p.bit_length() // 32)
+    return 2 * 2 * w * w
+
+
 def bound(bytes_moved: float, mads: float, int32_rate: float):
     by_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     by_ops = mads / int32_rate * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-# the lanes of (g) whose totals a part-only check holds to the plain version
-PART_LANES = 1 << 18
-
-
-def check_kernels(dev, log2: int, int32_rate: float, reps: int,
-                  curve: str = "bn254a", whole: bool = True):
-    """Returns one record per kernel and variant of a curve, every kernel
-    launched at the shapes the main path gives it at 2^log2 constraints.
-    ``whole``: compare the whole output with the plain version; else, for
-    (g) and the window table, whose plain versions' time grows with their
-    lanes and windows, a part of the output that stands alone (named in
-    the record's ``plain_part``; the plain version computes that part
-    only).  The row
-    gather, which knows no curve, has its records with the first curve."""
-    gen = torch.Generator(device=dev).manual_seed(20)
-    records = []
-    cv = kernels.CURVES[curve][0]()
-    fr, fq = cv.fr, cv.fq
-    groups = ((1, cv.g1.name), (2, cv.g2.name))
+def recorder(dev, reps: int, int32_rate: float, curve: str, records: list):
+    """The function that times one kernel record of a library (``curve``:
+    a curve's, or the test fields') and appends it to ``records``."""
 
     def record(name, variant, shape, kernel_fn, plain_fn, bytes_moved, mads,
                library_fn=None, part=None):
@@ -376,10 +408,21 @@ def check_kernels(dev, log2: int, int32_rate: float, reps: int,
             raise SystemExit(f"kernel {name} ({variant}) differs from its "
                              f"plain version: {records[-1]}")
 
-    def ntt_record(variant, x, tw, dif, pre, post):
-        """An ntt_block record: products (L/2) log2 L per transform and
-        one per pre / post element; bytes: x, the output, the tables once
-        (a broadcast table counted as stored)."""
+    return record
+
+
+def ntt_records(record, gen, dev, log2: int, spec, tag: str, rand):
+    """``ntt_block`` records of a field: the two 4-step passes of the
+    witness map's coset NTT (columns with the coset powers as pre and the
+    twiddles as post; rows through the transposed view) and of its coset
+    iNTT (columns with the twiddles; rows with g^-i / n as post), at the
+    domain of 2^log2, the tables as ops/ntt.py caches them; and one
+    transform of 2^12 (B = 1), the longest one launch takes.  ``rand(gen,
+    shape, dev)`` makes the inputs.  Bound: one product of the field's
+    width per butterfly and per table element; bytes: x, the output, the tables once (a broadcast
+    table counted as stored)."""
+
+    def one(variant, x, tw, dif, pre, post):
         L = x.shape[1]
         count = x.numel() // (8 * L)
         tables = [t for t in (pre, post) if t is not None]
@@ -387,9 +430,122 @@ def check_kernels(dev, log2: int, int32_rate: float, reps: int,
         moved = ELEM_BYTES * (2 * x.numel() // 8 + tw.numel() // 8 + sum(
             t.untyped_storage().nbytes() // 4 // 8 for t in tables))
         record("ntt_block", variant, list(x.shape),
-               lambda: kernels.ntt_block(fr, x, tw, dif, pre, post),
-               lambda: kernels.ntt_block_plain(fr, x, tw, dif, pre, post),
-               moved, MADS_PER_MONT_MUL * prods)
+               lambda: kernels.ntt_block(spec, x, tw, dif, pre, post),
+               lambda: kernels.ntt_block_plain(spec, x, tw, dif, pre, post),
+               moved, mads_per_product(spec) * prods)
+
+    n = 1 << log2
+    R, C = 1 << ((log2 + 1) // 2), 1 << (log2 // 2)
+    for inverse in (False, True):
+        what = "coset iNTT" if inverse else "coset NTT"
+        tw4 = ntt._four_step_twiddles(spec, R, C, inverse, dev)[..., None]
+        coset = ntt._coset_table(spec, n, inverse, dev)
+        x = rand(gen, (R, C, 1), dev)
+        pre = None if inverse else coset.reshape(8, R, C, 1)
+        one(f"{tag} 2^{log2} {what}, columns", x,
+            ntt._stage_twiddles(spec, R, inverse, dev), not inverse, pre, tw4)
+        post = coset.reshape(8, C, R, 1) if inverse else None
+        one(f"{tag} 2^{log2} {what}, rows (transposed view)",
+            rand(gen, (R, C, 1), dev).permute(0, 2, 1, 3),
+            ntt._stage_twiddles(spec, C, inverse, dev), not inverse, None,
+            post)
+        del tw4, coset, x, pre, post
+    L1 = kernels.NTT_BLOCK_MAX
+    one(f"{tag} 2^{L1.bit_length() - 1} iNTT, one launch (B = 1)",
+        rand(gen, (L1, 1), dev), ntt._stage_twiddles(spec, L1, True, dev),
+        False, None, ntt._scale(spec, L1, dev)[:, :, None])
+
+
+def check_test_field_kernels(dev, log2: int, int32_rate: float, reps: int):
+    """The records of the test fields' library (SMALL, LARGE: the field
+    kernels built for fields of no curve) at BN254a's main-path shapes:
+    ``butterfly`` [8, 2^(log2-1)] (off the path), ``ntt_block``'s coset
+    passes at 2^log2 and its 2^12 transform, ``mont_mul`` and ``mul_sub``
+    [8, 2^log2], ``mont_pow`` of p - 2 [8, 1] and [8, 4096],
+    ``batch_inv_rows`` [8, 2^log2] with 5 % zeros.  A bound counts the
+    products of the field's own width (``mads_per_product``: SMALL's two
+    words, though the kernels run the eight-word CIOS for every field); a
+    Fermat chain counts the squares and products of this field's p - 2."""
+    gen = torch.Generator(device=dev).manual_seed(21)
+    records = []
+    record = recorder(dev, reps, int32_rate, kernels.TEST_FIELDS, records)
+    n, half = 1 << log2, 1 << (log2 - 1)
+    fields = kernels.LIBRARIES[kernels.TEST_FIELDS]
+    for spec, tag in zip(fields.specs(), fields.tags):
+        def rand(g, shape, d, spec=spec):
+            return rand_elems(g, spec, shape, d)
+
+        mads = mads_per_product(spec)
+
+        for dif in (True, False):
+            a, b, w = (rand(gen, (half,), dev) for _ in range(3))
+            record("butterfly", f"{tag} {'DIF' if dif else 'DIT'} (off the "
+                   "path)", [8, half],
+                   lambda: kernels.butterfly(spec, a, b, w, dif),
+                   lambda: kernels.butterfly_plain(spec, a, b, w, dif),
+                   5 * ELEM_BYTES * half, mads * half)
+        ntt_records(record, gen, dev, log2, spec, tag, rand)
+        a, b, c = (rand(gen, (n,), dev) for _ in range(3))
+        record("mont_mul", tag, [8, n],
+               lambda: kernels.mont_mul(spec, a, b),
+               lambda: kernels.mont_mul_plain(spec, a, b),
+               3 * ELEM_BYTES * n, mads * n)
+        record("mul_sub", tag, [8, n],
+               lambda: kernels.mul_sub(spec, a, b, c),
+               lambda: kernels.mul_sub_plain(spec, a, b, c),
+               4 * ELEM_BYTES * n, mads * n)
+        pm2 = spec.p_minus_2
+        fermat = (pm2.bit_length() - 1) + (bin(pm2).count("1") - 1)
+        for cnt in (1, 4096):
+            a = rand(gen, (cnt,), dev)
+            record("mont_pow", f"{tag}, p - 2", [8, cnt],
+                   lambda: kernels.mont_pow(spec, a, pm2),
+                   lambda: kernels.mont_pow_plain(spec, a, pm2),
+                   2 * ELEM_BYTES * cnt, mads * fermat * cnt)
+        a = rand(gen, (n,), dev)
+        a[:, torch.rand(n, device=dev, generator=gen) < 0.05] = 0
+        nonzero = int((a != 0).any(0).sum())
+        record("batch_inv_rows", f"{tag}, {min(kernels.INV_LANES, n)} lanes",
+               [8, n],
+               lambda: kernels.batch_inv_rows(spec, a),
+               lambda: kernels.batch_inv_rows_plain(spec, a),
+               2 * ELEM_BYTES * n, mads * (3 * nonzero + fermat))
+        del a, b, c, w
+    drop_test_field_tables()
+    return records
+
+
+def drop_test_field_tables():
+    """Free the NTT tables that the test fields' phases left in ops/ntt.py's
+    cache (about 0.3 GB at 2^20), so that the later paths' peak memory
+    counts only their own."""
+    names = {s.name for s in kernels.LIBRARIES[kernels.TEST_FIELDS].specs()}
+    for key in [k for k in ntt._TABLES if k[1] in names]:
+        del ntt._TABLES[key]
+    torch.cuda.empty_cache()
+
+
+# the lanes of (g) whose totals a part-only check holds to the plain version
+PART_LANES = 1 << 18
+
+
+def check_kernels(dev, log2: int, int32_rate: float, reps: int,
+                  curve: str = "bn254a", whole: bool = True):
+    """Returns one record per kernel and variant of a curve, every kernel
+    launched at the shapes the main path gives it at 2^log2 constraints.
+    ``whole``: compare the whole output with the plain version; else, for
+    (g) and the window table, whose plain versions' time grows with their
+    lanes and windows, a part of the output that stands alone (named in
+    the record's ``plain_part``; the plain version computes that part
+    only).  The row
+    gather, which knows no curve, has its records with the first curve."""
+    gen = torch.Generator(device=dev).manual_seed(20)
+    records = []
+    cv = kernels.LIBRARIES[curve].bundle()
+    fr, fq = cv.fr, cv.fq
+    groups = ((1, cv.g1.name), (2, cv.g2.name))
+
+    record = recorder(dev, reps, int32_rate, curve, records)
 
     n = 1 << log2
     # (a) butterfly: one stage over the 2^log2 elements pairs half of them
@@ -404,34 +560,7 @@ def check_kernels(dev, log2: int, int32_rate: float, reps: int,
                    lambda: kernels.butterfly(spec, a, b, w, dif),
                    lambda: kernels.butterfly_plain(spec, a, b, w, dif),
                    5 * ELEM_BYTES * half, MADS_PER_MONT_MUL * half)
-    # (a)'s chain as ntt_block: the two 4-step passes of the witness map's
-    # coset NTT (columns with the coset powers as pre and the twiddles as
-    # post; rows through the transposed view) and of its coset iNTT
-    # (columns with the twiddles; rows with g^-i / n as post), at the
-    # prover's domain of 2^log2 over Fr, the tables as ops/ntt.py caches
-    # them; and one transform of 2^12 (B = 1), the longest one launch
-    # takes.  Bound: one product per butterfly and per table element.
-    R, C = 1 << ((log2 + 1) // 2), 1 << (log2 // 2)
-    for inverse in (False, True):
-        what = "coset iNTT" if inverse else "coset NTT"
-        tw4 = ntt._four_step_twiddles(fr, R, C, inverse, dev)[..., None]
-        coset = ntt._coset_table(fr, n, inverse, dev)
-        x = rand_field(gen, (R, C, 1), dev)
-        pre = None if inverse else coset.reshape(8, R, C, 1)
-        ntt_record(f"Fr 2^{log2} {what}, columns", x,
-                   ntt._stage_twiddles(fr, R, inverse, dev), not inverse,
-                   pre, tw4)
-        post = coset.reshape(8, C, R, 1) if inverse else None
-        ntt_record(f"Fr 2^{log2} {what}, rows (transposed view)",
-                   rand_field(gen, (R, C, 1), dev).permute(0, 2, 1, 3),
-                   ntt._stage_twiddles(fr, C, inverse, dev), not inverse,
-                   None, post)
-        del tw4, coset, x, pre, post
-    L1 = kernels.NTT_BLOCK_MAX
-    ntt_record(f"Fr 2^{L1.bit_length() - 1} iNTT, one launch (B = 1)",
-               rand_field(gen, (L1, 1), dev),
-               ntt._stage_twiddles(fr, L1, True, dev), False, None,
-               ntt._scale(fr, L1, dev)[:, :, None])
+    ntt_records(record, gen, dev, log2, fr, "Fr", rand_field)
     # (b) mont_mul: Fr at the NTT size, Fq at the packed-query size
     for spec, tag, cnt in ((fr, "Fr", n), (fq, "Fq", 2 * n)):
         a, b = rand_field(gen, (cnt,), dev), rand_field(gen, (cnt,), dev)
@@ -927,6 +1056,179 @@ def run_bn254b(dev, log2: int):
     return launches
 
 
+# the test fields' path: elements held against python ints, and the
+# exponent of its power check
+SAMPLE = 4096
+POW_EXP = 0x1234567890ABCDEF
+
+
+def _horner(coeffs, x: int, p: int) -> int:
+    acc = 0
+    for c in reversed(coeffs):
+        acc = (acc * x + c) % p
+    return acc
+
+
+def _test_field(dev, gen, spec, n: int, stages: dict) -> dict:
+    """One test field through the port's entry points at n elements, each
+    result checked; returns what was checked (all must be True)."""
+    p = spec.p
+    rinv = pow(1 << 256, -1, p)
+    one = fp.constant(spec.one_mont_words, (n,), dev)
+    x = rand_elems(gen, spec, (n,), dev)
+    edges = [0, 1, p - 1, p - 2]
+    x[:, :len(edges)] = torch.from_numpy(
+        bigint.ints_to_words(edges).copy()).to(dev)
+    t0 = time.perf_counter()
+    y = ntt.ntt(spec, x)
+    back = ntt.intt(spec, y)
+    yc = ntt.coset_ntt(spec, x)
+    backc = ntt.coset_intt(spec, yc)
+    torch.cuda.synchronize(dev)
+    stages["ntt, intt, coset_ntt, coset_intt"] = time.perf_counter() - t0
+    b, c = rand_elems(gen, spec, (n,), dev), rand_elems(gen, spec, (n,), dev)
+    t0 = time.perf_counter()
+    h = kernels.mul_sub(spec, x, b, c)
+    h_alt = fp.sub(spec, fp.mont_mul(spec, x, b), c)
+    torch.cuda.synchronize(dev)
+    stages["mul_sub, mont_mul"] = time.perf_counter() - t0
+    z = x.clone()
+    z[:, torch.rand(n, device=dev, generator=gen) < 0.05] = 0
+    zero = fp.is_zero(z)
+    t0 = time.perf_counter()
+    zi = fp.batch_inv_rows(spec, z)
+    zprod = fp.mont_mul(spec, zi, z)
+    torch.cuda.synchronize(dev)
+    stages["batch_inv_rows"] = time.perf_counter() - t0
+    s = x[:, -SAMPLE:].contiguous()
+    t0 = time.perf_counter()
+    s_inv = fp.inv(spec, s)
+    s_pow = fp.pow_const(spec, s, POW_EXP)
+    torch.cuda.synchronize(dev)
+    stages["inv, pow_const"] = time.perf_counter() - t0
+
+    # python ints: the NTTs at two points, the rest on a sample
+    t0 = time.perf_counter()
+    xs = bigint.words_to_ints(x.cpu().numpy())
+    w = spec.rou_of_order(n)
+    ys = bigint.words_to_ints(y[:, [1, n - 1]].cpu().numpy())
+    yc1 = bigint.words_to_ints(yc[:, 1].cpu().numpy())[0]
+    ntt_ok = (ys == [_horner(xs, w, p), _horner(xs, pow(w, n - 1, p), p)]
+              and yc1 == _horner(xs, spec.generator * w % p, p))
+    pos = torch.randperm(n, device=dev, generator=gen)[:SAMPLE]
+
+    def ints(t):
+        return bigint.words_to_ints(t[:, pos].cpu().numpy())
+
+    xv, bv, cv, hv, zv, ziv = (ints(t) for t in (x, b, c, h, z, zi))
+    sv = bigint.words_to_ints(s.cpu().numpy())
+    sample_ok = {
+        "mul_sub": hv == [(u * v * rinv - w_) % p
+                          for u, v, w_ in zip(xv, bv, cv)],
+        "batch_inv_rows": ziv == [pow(u, -1, p) * (1 << 512) % p if u else 0
+                                  for u in zv],
+        "inv": bigint.words_to_ints(s_inv.cpu().numpy()) == [
+            pow(u, -1, p) * (1 << 512) % p if u else 0 for u in sv],
+        "pow_const": bigint.words_to_ints(s_pow.cpu().numpy()) == [
+            pow(u * rinv % p, POW_EXP, p) * (1 << 256) % p for u in sv]}
+    stages["python ints"] = time.perf_counter() - t0
+    return {
+        "ntt_intt_round_trip": torch.equal(back, x),
+        "coset_round_trip": torch.equal(backc, x),
+        "ntt_at_two_points_and_coset_at_one": ntt_ok,
+        "mul_sub_equals_mont_mul_then_sub": torch.equal(h, h_alt),
+        "batch_inv_rows_times_input_is_one": bool(
+            (fp.eq(zprod, one) | zero).all() and fp.is_zero(zi[:, zero]).all()),
+        "inv_times_input_is_one_where_nonzero": bool(
+            (fp.eq(fp.mont_mul(spec, s_inv, s), one[:, :SAMPLE])
+             | fp.is_zero(s)).all()),
+        **{f"sample_{k}": v for k, v in sample_ok.items()}}
+
+
+def run_test_fields(dev, log2: int):
+    """The test fields of no curve (SMALL, 62 bits; LARGE, 255 bits) at
+    2^log2 elements each through fields/fp.py and ops/ntt.py: ntt -> intt
+    and coset_ntt -> coset_intt give the input back (the NTTs also equal
+    the polynomial at two points, the coset NTT at one); H = A B - C
+    through mul_sub equals the product then the subtract;
+    ``batch_inv_rows`` (5 % zeros) times its input is one where the input
+    is not zero; ``inv`` and ``pow_const`` on 4,096; a sample of 4,096
+    elements of each result held against python ints.  Every field kernel
+    must launch with the test fields' operands.  Returns the launch
+    counts."""
+    gen = torch.Generator(device=dev).manual_seed(22)
+    n = 1 << log2
+
+    def path():
+        out = {}
+        for spec in kernels.LIBRARIES[kernels.TEST_FIELDS].specs():
+            stages = {}
+            checks = _test_field(dev, gen, spec, n, stages)
+            out[spec.name] = {"p_bits": spec.p.bit_length(), "n": n,
+                              "checks": checks, "seconds": stages}
+        return out
+
+    out, launches = drive(dev, "test fields", path, curve=kernels.TEST_FIELDS)
+    drop_test_field_tables()
+    emit({"path": {"name": "test fields", "fields": out,
+                   "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
+                   "launches": launches}})
+    if not all(all(f["checks"].values()) for f in out.values()):
+        raise SystemExit("the test fields' path produced a wrong result")
+    return launches
+
+
+def run_mxu(dev, log2: int):
+    """The tensor-core Montgomery experiment at 2^log2 (it prints its
+    lines): kernel (b) against ops/mxu_mont.py, BN254a Fr and Fq, equal
+    over the whole batch (it raises otherwise).  Returns the launch
+    counts."""
+    from octopuszk_tpu_torch.scripts import mxu_experiment
+    t0 = time.perf_counter()
+    _, launches = drive(dev, "mxu", lambda: mxu_experiment.main(log2))
+    emit({"path": {"name": "mxu", "log2": log2,
+                   "seconds": time.perf_counter() - t0,
+                   "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
+                   "launches": launches}})
+    return launches
+
+
+def run_native(log2: int):
+    """The host marshaling of 2^log2 Fr-sized ints both ways, the native
+    library (utils/native.py, built with the script's kernels) against the
+    numpy path: the words must be equal.  Prints each one's time and the
+    path the prover's ``assignment`` stage takes (``ints_to_words``:
+    numpy's)."""
+    n = 1 << log2
+    rng = random.Random(13)
+    xs = [rng.randrange(FR.p) for _ in range(n)]
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        return out, time.perf_counter() - t0
+
+    raw, pack_s = timed(lambda: bigint.ints_to_bytes(xs))
+    w_native, native_s = timed(lambda: native.bytes_to_words(raw, n, 32))
+    w_numpy, numpy_s = timed(lambda: bigint.bytes_to_words_numpy(raw, n))
+    r_native, rnative_s = timed(lambda: native.words_to_bytes(w_numpy))
+    r_numpy, rnumpy_s = timed(
+        lambda: bigint.words_to_bytes_numpy(w_numpy.view("uint32")))
+    _, ints_s = timed(lambda: bigint.ints_to_words(xs))
+    equal = (w_native is not None and (w_native == w_numpy).all()
+             and r_native == r_numpy == raw)
+    emit({"native": {
+        "library": os.path.relpath(native.path(), os.path.dirname(
+            os.path.abspath(__file__))),
+        "assignment_path": "numpy",
+        "n": n, "int_to_bytes_loop_s": pack_s,
+        "bytes_to_words_s": {"native": native_s, "numpy": numpy_s},
+        "words_to_bytes_s": {"native": rnative_s, "numpy": rnumpy_s},
+        "ints_to_words_s": ints_s, "equal": bool(equal)}})
+    if not equal:
+        raise SystemExit("the native marshaling differs from numpy's")
+
+
 def run_dist(dev, log2: int, crs, proof):
     """The distributed prover over four shards at 2^log2 constraints on
     BN254a: construct, ``shard_r1cs``, ``distributed_setup`` and
@@ -1172,10 +1474,11 @@ def run_oracle(dev, n: int):
 
 
 def ptxas_summary():
-    """Registers and spills per kernel, from each curve's build's ptxas
-    output, with the curve and source it was compiled from."""
+    """Registers and spills per kernel, from each library's build's ptxas
+    output, with the library (``curve``) and source it was compiled
+    from."""
     out, cur = [], None
-    lines = [(curve, src, line) for curve in kernels.CURVES
+    lines = [(curve, src, line) for curve in kernels.LIBRARIES
              for src, text in kernels.compile_log(curve).items()
              for line in text.splitlines()]
     for curve, src, line in lines:
@@ -1199,7 +1502,7 @@ def ptxas_summary():
 
 
 def unit_seconds(curve):
-    """Seconds from the start of a curve's build in this process to the
+    """Seconds from the start of a library's build in this process to the
     last write of each source's compiler log (None where the library was
     already built)."""
     if curve not in kernels.build_seconds:
@@ -1225,7 +1528,10 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor() as pool:   # build + load
-        list(pool.map(kernels.lib, kernels.CURVES))
+        built = [pool.submit(native.build)] + [
+            pool.submit(kernels.lib, c) for c in kernels.LIBRARIES]
+        for b in built:
+            b.result()
     card = smi("name,power.limit")
     sm_mhz = float(smi("clocks.max.sm").split()[0])
     int32_rate = SM_COUNT * INT32_LANES_PER_SM * sm_mhz * 1e6
@@ -1235,7 +1541,7 @@ def main() -> int:
         "clocks_max_sm_mhz": sm_mhz,
         "int32_mads_per_s_derived": int32_rate,
         "build_seconds": kernels.build_seconds,
-        "build_unit_seconds": {c: unit_seconds(c) for c in kernels.CURVES},
+        "build_unit_seconds": {c: unit_seconds(c) for c in kernels.LIBRARIES},
         "ptxas": ptxas_summary()}})
 
     phases = {"build": time.perf_counter() - t_start}
@@ -1246,6 +1552,8 @@ def main() -> int:
         yield
         phases[name] = time.perf_counter() - t0
 
+    with phase("native"):
+        run_native(args.log2)
     with phase("kernels"):
         records = check_kernels(dev, args.log2, int32_rate, reps=5)
         torch.cuda.empty_cache()
@@ -1253,10 +1561,18 @@ def main() -> int:
         records += check_kernels(dev, args.log2, int32_rate, reps=5,
                                  curve="bn254b", whole=False)
         torch.cuda.empty_cache()
+    with phase("kernels test fields"):
+        records += check_test_field_kernels(dev, args.log2, int32_rate,
+                                            reps=5)
     with phase("paths"):
         counts, proving_inputs, packed_proof = run_paths(dev, args.log2)
     with phase("path bn254b"):
         counts["bn254b"] = run_bn254b(dev, args.log2)
+        torch.cuda.empty_cache()
+    with phase("path test fields"):
+        counts["test fields"] = run_test_fields(dev, args.log2)
+    with phase("mxu"):
+        counts["mxu"] = run_mxu(dev, args.log2)
         torch.cuda.empty_cache()
     with phase("profile and oracle"):
         profile_prove(dev, *proving_inputs)

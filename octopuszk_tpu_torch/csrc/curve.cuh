@@ -4,9 +4,17 @@
 // templates instantiated for its curve's moduli; the entry points keep
 // their names, each library is loaded on its own.  Field ids in the entry
 // points: 0 = the curve's Fr, 1 = its Fq; group ids: 1 = G1, 2 = G2.
+//
+// With -DOZ_TEST_FIELDS a unit is built for the test fields, which belong
+// to no curve (the field sources only): field 0 is SMALL, field 1 is
+// LARGE, and there are no groups.
 #pragma once
 #include "fp2.cuh"
 
+#if defined(OZ_TEST_FIELDS)
+typedef SmallMod CurveFr;
+typedef LargeMod CurveFq;
+#else
 #if defined(OZ_CURVE_BN254B)
 typedef FrbMod CurveFr;
 typedef FqbMod CurveFq;
@@ -17,3 +25,4 @@ typedef FqMod CurveFq;
 
 typedef Fp<CurveFq> G1Coord;
 typedef Fp2<CurveFq> G2Coord;
+#endif

@@ -5,10 +5,26 @@
 // (ops/kernels.py) and the JAX reference bit for bit after a repack.
 //
 // The modulus is a template parameter: FrMod, FqMod (BN254a), FrbMod,
-// FqbMod (BN254b).  Its constants come from constants.cuh, which
-// ops/kernels.py writes from the curves' specs at build time, so the two
-// cannot drift apart; it refuses a modulus of 2^254 or more, so 2p <
-// 2^255 holds below.
+// FqbMod (BN254b), SmallMod, LargeMod (the test fields of no curve).  Its
+// constants come from constants.cuh, which ops/kernels.py writes from the
+// field specs at build time, so the two cannot drift apart.
+//
+// The one bound on the modulus: p < 2^255 (constants_header refuses any
+// other), so 2p < 2^256 and every value below 2p fits eight words.  What
+// rests on it, with a < p and b < p canonical:
+// * add: a + b < 2p < 2^256, so no carry leaves word 7, and reduce_once
+//   (which takes any value below 2p) makes it canonical; sub and neg need
+//   only p < 2^256.
+// * mul (CIOS): between rounds the value V is below 2p; a round forms
+//   U = V + a * b_i + m * p < 2p + 2 (2^32 - 1) p < 2^33 p < 2^288, nine
+//   words, and U / 2^32 < 2p again.  U is held as an even array (words 0
+//   to 7) plus an odd array one word higher (words 1 to 8).  Every term is
+//   non-negative, so the odd array alone is at most U / 2^32 < 2^256: no
+//   carry leaves its word 8, and the even array's carry out of word 7,
+//   which weighs 2^256, lands in the odd array's top word.  After the last
+//   round the result is below 2p < 2^256 and one reduce_once finishes.
+// BN254's moduli (below 2^254) and LARGE's (about 2^254.86) run the same
+// code: the bound costs no extra word or subtract.
 #pragma once
 #include <cstddef>
 #include <cstdint>
@@ -178,6 +194,13 @@ struct FqbMod {
   OZ_MODULUS(FQB)
   OZ_CURVE_TRAITS(FQB)
 };
+// the test fields, of no curve: a 62-bit and a 255-bit modulus
+struct SmallMod {
+  OZ_MODULUS(SMALL)
+};
+struct LargeMod {
+  OZ_MODULUS(LARGE)
+};
 #undef OZ_MODULUS
 #undef OZ_CURVE_TRAITS
 
@@ -247,7 +270,7 @@ __device__ __forceinline__ Fp<M> add(const Fp<M>& a, const Fp<M>& b) {
   s.v[0] = cc::add_cc(a.v[0], b.v[0]);
 #pragma unroll
   for (int k = 1; k < 7; k++) s.v[k] = cc::addc_cc(a.v[k], b.v[k]);
-  s.v[7] = cc::addc(a.v[7], b.v[7]);  // a + b < 2p < 2^255: no carry out
+  s.v[7] = cc::addc(a.v[7], b.v[7]);  // a + b < 2p < 2^256: no carry out
   return reduce_once(s);
 }
 
@@ -309,10 +332,11 @@ __device__ __forceinline__ Fp<M> neg(const Fp<M>& a) {
 // a * b[i] and m * p (m = even[0] * N0INV makes the low word zero), then
 // divides by 2^32 by trading the two arrays' roles: the next round's even
 // array is this round's odd one plus even[1], its odd array is even[2..7]
-// (the shift folded into the next row's multiply-adds).  The value stays
-// below 2p < 2^255 between rounds, so the odd array's own top carry is
-// always zero and the one carry chain that may leave the even array is
-// added into the odd array's top word.  After eight rounds one merge adds
+// (the shift folded into the next row's multiply-adds).  A round's value
+// stays below 2^288 and the value between rounds below 2p (the bound at
+// the top of this file), so the odd array's own top carry is always zero
+// and the one carry chain that may leave the even array is added into the
+// odd array's top word.  After eight rounds one merge adds
 // the arrays and one conditional subtract makes the result canonical.
 namespace mont {
 

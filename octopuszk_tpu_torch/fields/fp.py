@@ -160,7 +160,7 @@ def _const_like(spec_words: np.ndarray, ref: torch.Tensor) -> torch.Tensor:
 
 def add(spec: FieldSpec, a, b):
     """(a + b) mod p, canonical in/out."""
-    s, _ = _resolve_add(_u64(a) + _u64(b))   # < 2p < 2**255: no carry out
+    s, _ = _resolve_add(_u64(a) + _u64(b))   # < 2p < 2**256: no carry out
     return _i32(_cond_sub_p(spec, s))
 
 

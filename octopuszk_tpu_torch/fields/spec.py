@@ -133,3 +133,28 @@ FQ_B = FieldSpec(
     two_adicity=50,
     root_of_unity=8794480323307618088839840625900989315206881983614277345799820743772850434426,
 )
+
+
+# The reference's test fields, which belong to no curve: they run the
+# generic word kernels at other moduli.  SMALL is a 62-bit NTT prime, 29 *
+# 2^57 + 1 (two-adicity 57); LARGE is the BLS12-381 scalar field, 255 bits
+# (two-adicity 32), the widest modulus the kernels take (ops/kernels.py
+# constants_header).
+_SMALL_P = 4179340454199820289
+_LARGE_P = 52435875175126190479447740508185965837690552500527637822603658699938581184513
+
+SMALL = FieldSpec(
+    name="small_fp",
+    p=_SMALL_P,
+    generator=3,
+    two_adicity=57,
+    root_of_unity=pow(3, 29, _SMALL_P),
+)
+
+LARGE = FieldSpec(
+    name="large_fp",
+    p=_LARGE_P,
+    generator=7,
+    two_adicity=32,
+    root_of_unity=pow(7, (_LARGE_P - 1) >> 32, _LARGE_P),
+)

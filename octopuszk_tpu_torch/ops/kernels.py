@@ -36,23 +36,27 @@ a tensor on the CPU it evaluates the plain PyTorch version beside it
 card the operands lie on, on that card's current stream, without
 synchronising, or raises.  Operands on two devices raise ``ValueError`` on
 either path.  There is no fallback and no size threshold.
-``CURVE_LAUNCHES`` counts kernel launches per wrapper and curve,
+``CURVE_LAUNCHES`` counts kernel launches per wrapper and library,
 ``LAUNCHES`` per wrapper.
 
-Every kernel but the row gather is one of a curve as well as of a field or
-a group: ``CURVES`` lists the curves of curves/family.py (BN254a, whose
-groups are ``G1`` and ``G2``; BN254b, whose groups are ``bn254b-G1`` and
-``bn254b-G2``).  A field spec or a group name picks its curve's library;
-one that no curve knows raises ``ValueError``.
+Every kernel but the row gather is one of a library, and a library is a
+pair of fields: ``LIBRARIES`` holds one entry per library.  The curves of
+curves/family.py (BN254a, whose groups are ``G1`` and ``G2``; BN254b,
+whose groups are ``bn254b-G1`` and ``bn254b-G2``) have a library each,
+with Fr as field 0 and Fq as field 1 and every kernel.  The reference's
+test fields, which belong to no curve, have one with the field kernels (a,
+b, c, b's chains, ``ntt_block``) alone: field 0 is ``SMALL`` (62 bits),
+field 1 ``LARGE`` (255 bits).  A field spec or a group name picks its
+library; one that no library knows raises ``ValueError``.
 
-Build: each curve has a library of its own, built at the first use of the
-curve: ``nvcc`` compiles each source for ``sm_90a`` with the curve's
-definitions (``-DOZ_CURVE_BN254B`` for BN254b, read by csrc/curve.cuh),
-all sources at once, and links a shared library with a plain C interface
-under ``build/``, keyed by a hash of the sources, the curve and the
-constants written from the curves' specs (``constants_header``); it is
-loaded with ``ctypes``.  The row gather, which knows no curve, is built
-into the first curve's library.
+Build: each library is built at its first use: ``nvcc`` compiles each of
+its sources for ``sm_90a`` with its definitions (``-DOZ_CURVE_BN254B`` for
+BN254b, ``-DOZ_TEST_FIELDS`` for the test fields, read by
+csrc/curve.cuh), all sources at once, and links a shared library with a
+plain C interface under ``build/``, keyed by a hash of the sources, the
+definitions and the constants written from the field specs
+(``constants_header``); it is loaded with ``ctypes``.  The row gather,
+which knows no field, is built into BN254a's library.
 """
 
 from __future__ import annotations
@@ -66,26 +70,59 @@ import pathlib
 import shutil
 import subprocess
 import time
+import typing
 
 import numpy as np
 import torch
 
 from octopuszk_tpu_torch.curves import family
 from octopuszk_tpu_torch.fields import fp
-from octopuszk_tpu_torch.fields.spec import FieldSpec, HALF_BITS, HALF_MASK
+from octopuszk_tpu_torch.fields.spec import (
+    FieldSpec, HALF_BITS, HALF_MASK, LARGE, SMALL)
 from octopuszk_tpu_torch.utils.bigint import NUM_WORDS
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parent.parent.parent / "build"
-# curve -> (its bundle in curves/family.py, the tag of its constants in
-# constants.cuh, its nvcc definitions)
-CURVES = {"bn254a": (family.bn254a, "", ()),
-          "bn254b": (family.bn254b, "B", ("-DOZ_CURVE_BN254B",))}
+
+
+class Library(typing.NamedTuple):
+    """One kernel library."""
+    specs: typing.Callable      # -> (field 0's spec, field 1's spec)
+    tags: tuple                 # their constants' tags in constants.cuh
+    bundle: typing.Callable | None  # its curve in curves/family.py (groups)
+    defs: tuple                 # nvcc definitions
+    sources: tuple              # under csrc/
+    entries: tuple              # the entry points it exports
+
+
+FIELD_SOURCES = ("field_kernels.cu", "ntt_kernels.cu")
+FIELD_ENTRIES = ("oz_butterfly", "oz_mont_mul", "oz_mul_sub", "oz_ntt_block",
+                 "oz_mont_pow", "oz_batch_inv_rows")
 CURVE_SOURCES = ("field_kernels.cu", "ec_kernels.cu", "scan_kernels.cu",
                  "ntt_kernels.cu", "table_kernels.cu", "bucket_kernels.cu",
                  "prefix_kernels.cu")
-# the row gather knows no curve: it is built with the first curve
-GATHER_CURVE = next(iter(CURVES))
+CURVE_ENTRIES = FIELD_ENTRIES + (
+    "oz_add_points", "oz_double_points", "oz_scan_mixed", "oz_scan_full",
+    "oz_window_table", "oz_combine_windows", "oz_lane_row_sums",
+    "oz_tree_sum", "oz_prefix_sum")
+
+
+def _curve_library(bundle, tag, defs, extra_sources=(), extra_entries=()):
+    return Library(lambda: (bundle().fr, bundle().fq),
+                   ("FR" + tag, "FQ" + tag), bundle, defs, CURVE_SOURCES + extra_sources,
+                   CURVE_ENTRIES + extra_entries)
+
+
+LIBRARIES = {
+    "bn254a": _curve_library(family.bn254a, "", (), ("gather_kernels.cu",),
+                             ("oz_row_gather",)),
+    "bn254b": _curve_library(family.bn254b, "B", ("-DOZ_CURVE_BN254B",)),
+    "fields": Library(lambda: (SMALL, LARGE), ("SMALL", "LARGE"), None,
+                      ("-DOZ_TEST_FIELDS",), FIELD_SOURCES, FIELD_ENTRIES),
+}
+# the library of the test fields, and the one that holds the row gather
+TEST_FIELDS = "fields"
+GATHER_CURVE = "bn254a"
 HEADERS = ("field.cuh", "fp2.cuh", "rcb.cuh", "grid.cuh", "ntt.cuh",
            "curve.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -97,12 +134,12 @@ KERNEL_NAMES = ("butterfly", "mont_mul", "mul_sub", "add_points",
                 "row_gather", "mont_pow", "batch_inv_rows", "window_table",
                 "combine_windows", "lane_row_sums", "tree_sum", "prefix_sum",
                 "ntt_block")
-# launches per curve and wrapper (the row gather's under GATHER_CURVE)
-CURVE_LAUNCHES = {c: dict.fromkeys(KERNEL_NAMES, 0) for c in CURVES}
+# launches per library and wrapper (the row gather's under GATHER_CURVE)
+CURVE_LAUNCHES = {c: dict.fromkeys(KERNEL_NAMES, 0) for c in LIBRARIES}
 
 
 class _Totals(collections.abc.Mapping):
-    """Launches per wrapper, summed over the curves."""
+    """Launches per wrapper, summed over the libraries."""
 
     def __getitem__(self, name):
         return sum(counts[name] for counts in CURVE_LAUNCHES.values())
@@ -117,7 +154,7 @@ class _Totals(collections.abc.Mapping):
 LAUNCHES = _Totals()
 
 _libs = {}
-build_seconds = {}      # curve -> wall time of this process's build of it
+build_seconds = {}      # library -> wall time of this process's build of it
 
 
 def reset_launch_counts():
@@ -128,18 +165,19 @@ def reset_launch_counts():
 
 @functools.cache
 def _fields():
-    """field name -> (curve, id in the curve's entry points: 0 = Fr, 1 =
-    Fq)"""
-    return {spec.name: (curve, fid) for curve, (bundle, _, _) in CURVES.items()
-            for fid, spec in enumerate((bundle().fr, bundle().fq))}
+    """field name -> (library, id in its entry points: 0 = Fr, 1 = Fq of a
+    curve; 0 = SMALL, 1 = LARGE of the test fields)"""
+    return {spec.name: (name, fid) for name, library in LIBRARIES.items()
+            for fid, spec in enumerate(library.specs())}
 
 
 @functools.cache
 def _groups():
-    """group name -> (curve, coordinate dimension: 1 = Fq, G1; 2 = Fq2,
+    """group name -> (library, coordinate dimension: 1 = Fq, G1; 2 = Fq2,
     G2)"""
-    return {g.name: (curve, cd) for curve, (bundle, _, _) in CURVES.items()
-            for cd, g in ((1, bundle().g1), (2, bundle().g2))}
+    return {g.name: (name, cd) for name, library in LIBRARIES.items()
+            if library.bundle is not None
+            for cd, g in ((1, library.bundle().g1), (2, library.bundle().g2))}
 
 
 # ---------------------------------------------------------------------------
@@ -151,28 +189,35 @@ def _words_macro(x: int) -> str:
         f"0x{(x >> (32 * k)) & 0xFFFFFFFF:08x}u" for k in range(NUM_WORDS)) + "}"
 
 
+def _modulus_macros(tag: str, spec: FieldSpec) -> list:
+    """A modulus's words, one in Montgomery form and -p^-1 mod 2^32.
+    Raises ValueError for p >= 2^255: field.cuh's add and product need 2p
+    below 2^256 (the bound is argued there)."""
+    if spec.p >= 1 << 255:
+        raise ValueError(f"{spec.name}: the kernels need p < 2^255")
+    return [f"#define {tag}_P_WORDS {_words_macro(spec.p)}",
+            f"#define {tag}_ONE_WORDS {_words_macro(spec.r_mod_p)}",
+            f"#define {tag}_N0INV 0x{spec.n0inv32:08x}u"]
+
+
 def constants_header() -> str:
-    """constants.cuh: for every curve, the moduli and Montgomery constants
-    of its fields and, on its Fq, the Fp2 non-residue and 3 b on G1 and on
-    the G2 twist, as preprocessor macros.  Raises ValueError for a modulus
-    of 2^254 or more: field.cuh's add and product keep 2p below 2^255."""
-    lines = ["// generated from the curves' specs by ops/kernels.py",
+    """constants.cuh: for every library, the moduli and Montgomery
+    constants of its fields and, for a curve's Fq, the Fp2 non-residue and
+    3 b on G1 and on the G2 twist; all as preprocessor macros.  Raises
+    ValueError for a modulus of 2^255 or more."""
+    lines = ["// generated from the field specs by ops/kernels.py",
              "#pragma once"]
-    for bundle, tag, _ in CURVES.values():
-        cv = bundle()
-        tq = "FQ" + tag
-        for t, spec in (("FR" + tag, cv.fr), (tq, cv.fq)):
-            if spec.p >= 1 << 254:
-                raise ValueError(f"{spec.name}: the kernels need p < 2^254")
-            lines += [f"#define {t}_P_WORDS {_words_macro(spec.p)}",
-                      f"#define {t}_ONE_WORDS {_words_macro(spec.r_mod_p)}",
-                      f"#define {t}_N0INV 0x{spec.n0inv32:08x}u"]
-        lines += [f"#define {tq}_NR ({cv.nr})",
-                  f"#define {tq}_G1_B3 {cv.b3}u",
-                  f"#define {tq}_G2_B3_C0_WORDS "
-                  f"{_words_macro(cv.fq.to_mont(cv.b3_g2[0]))}",
-                  f"#define {tq}_G2_B3_C1_WORDS "
-                  f"{_words_macro(cv.fq.to_mont(cv.b3_g2[1]))}"]
+    for library in LIBRARIES.values():
+        for tag, spec in zip(library.tags, library.specs()):
+            lines += _modulus_macros(tag, spec)
+        if library.bundle is not None:
+            cv, tq = library.bundle(), library.tags[1]
+            lines += [f"#define {tq}_NR ({cv.nr})",
+                      f"#define {tq}_G1_B3 {cv.b3}u",
+                      f"#define {tq}_G2_B3_C0_WORDS "
+                      f"{_words_macro(cv.fq.to_mont(cv.b3_g2[0]))}",
+                      f"#define {tq}_G2_B3_C1_WORDS "
+                      f"{_words_macro(cv.fq.to_mont(cv.b3_g2[1]))}"]
     return "\n".join(lines) + "\n"
 
 
@@ -183,23 +228,22 @@ def _nvcc() -> str:
     return exe
 
 
-def sources(curve: str) -> tuple:
-    """The sources of a curve's library."""
-    return CURVE_SOURCES + (
-        ("gather_kernels.cu",) if curve == GATHER_CURVE else ())
+def sources(library: str) -> tuple:
+    """The sources of a library."""
+    return LIBRARIES[library].sources
 
 
-def build(curve: str) -> pathlib.Path:
-    """Compile a curve's kernels (one nvcc per source, all started
+def build(library: str) -> pathlib.Path:
+    """Compile a library's kernels (one nvcc per source, all started
     together) and link them into one shared library.  Returns its path; a
     library already built from the same sources is reused."""
-    defs = CURVES[curve][2]
+    defs = LIBRARIES[library].defs
     consts = constants_header()
     h = hashlib.sha256(consts.encode())
-    for name in HEADERS + sources(curve):
+    for name in HEADERS + sources(library):
         h.update((CSRC / name).read_bytes())
     h.update(" ".join(NVCC_FLAGS + defs).encode())
-    out_dir = BUILD_ROOT / f"kernels-{curve}-{h.hexdigest()[:16]}"
+    out_dir = BUILD_ROOT / f"kernels-{library}-{h.hexdigest()[:16]}"
     lib_path = out_dir / "liboctopuszk_kernels.so"
     if lib_path.exists():
         return lib_path
@@ -208,7 +252,7 @@ def build(curve: str) -> pathlib.Path:
     (out_dir / "constants.cuh").write_text(consts)
     nvcc = _nvcc()
     procs = []
-    for src in sources(curve):
+    for src in sources(library):
         obj = out_dir / (src[:-3] + ".o")
         log = open(out_dir / (src[:-3] + ".log"), "w")
         cmd = [nvcc, *NVCC_FLAGS, *defs, "-I", str(CSRC), "-I", str(out_dir),
@@ -221,7 +265,7 @@ def build(curve: str) -> pathlib.Path:
         proc.wait()
         log.close()
         if proc.returncode != 0:
-            failed.append(f"{src} ({curve}):\n"
+            failed.append(f"{src} ({library}):\n"
                           + (out_dir / (src[:-3] + ".log")).read_text())
         objs.append(str(obj))
     if failed:
@@ -233,16 +277,16 @@ def build(curve: str) -> pathlib.Path:
     if link.returncode != 0:
         raise RuntimeError("nvcc link failed\n" + link.stdout)
     os.replace(tmp, lib_path)
-    build_seconds[curve] = time.perf_counter() - t0
+    build_seconds[library] = time.perf_counter() - t0
     return lib_path
 
 
-def compile_log(curve: str) -> dict:
-    """What ptxas said (registers, spills) in a curve's build directory, by
-    source."""
-    path = build(curve).parent
+def compile_log(library: str) -> dict:
+    """What ptxas said (registers, spills) in a library's build directory,
+    by source."""
+    path = build(library).parent
     return {src: (path / (src[:-3] + ".log")).read_text()
-            for src in sources(curve)}
+            for src in sources(library)}
 
 
 def _argtypes():
@@ -267,24 +311,20 @@ def _argtypes():
         "oz_lane_row_sums": [ci, addrs, ll, ll, ll, addrs, vp],
         "oz_tree_sum": [ci, addrs, addrs, ll, ll, addrs, vp, vp],
         "oz_prefix_sum": [ci, addrs, addrs, ll, ll, addrs, vp, vp],
+        "oz_row_gather": [vp, ll, vp, ll, ci, vp, vp],
     }
 
 
-def lib(curve: str):
-    """A curve's loaded kernel library (built at the curve's first use)."""
-    if curve not in _libs:
-        cdll = ctypes.CDLL(str(build(curve)))
-        for name, args in _argtypes().items():
+def lib(library: str):
+    """A library's loaded kernels (built at its first use)."""
+    if library not in _libs:
+        cdll = ctypes.CDLL(str(build(library)))
+        types = _argtypes()
+        for name in LIBRARIES[library].entries:
             fn = getattr(cdll, name)
-            fn.argtypes, fn.restype = args, ctypes.c_int
-        if curve == GATHER_CURVE:
-            cdll.oz_row_gather.argtypes = [
-                ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-                ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
-                ctypes.c_void_p]
-            cdll.oz_row_gather.restype = ctypes.c_int
-        _libs[curve] = cdll
-    return _libs[curve]
+            fn.argtypes, fn.restype = types[name], ctypes.c_int
+        _libs[library] = cdll
+    return _libs[library]
 
 
 def _launch(fn, device, *args):
@@ -308,8 +348,8 @@ def _addr_array(tensors):
 
 
 def _field_entry(spec: FieldSpec, name: str):
-    """(entry point ``name`` of the field's curve, the field's id there,
-    the curve)."""
+    """(entry point ``name`` of the field's library, the field's id there,
+    the library)."""
     try:
         curve, fid = _fields()[spec.name]
     except KeyError:
@@ -677,7 +717,7 @@ def plain_ops(group_name: str):
     if group_name not in _PLAIN_OPS:
         from octopuszk_tpu_torch.curves import group_ops
         curve, cd = _group(group_name)
-        cv = CURVES[curve][0]()
+        cv = LIBRARIES[curve].bundle()
         _PLAIN_OPS[group_name] = (
             group_ops.make_fp_ops(cv.fq, b3=cv.b3, group_name=group_name,
                                   mul=mont_mul_plain) if cd == 1 else

@@ -9,8 +9,11 @@ sequence of steps (the Montgomery product's even/odd rounds, the chained
 add, subtract and conditional subtract) and the same point formulas, term
 for term, that the kernels run: what the card adds is the instruction
 selection.  Both curves: BN254a and BN254b, whose Fp2 non-residue -5 and
-G1 b3 = 39 take the headers' other branches.  Inputs: seeded random words
-below p, with 0, 1 and p - 1 among them; tolerance: exact."""
+G1 b3 = 39 take the headers' other branches; and the field arithmetic,
+the chains and the transform under the test fields of no curve, SMALL (62
+bits) and LARGE (255 bits, the widest modulus the headers take: field.cuh
+argues p < 2^255).  Inputs: seeded random words below p, with 0, 1, p - 1,
+p - 2 and 2^255 mod p among them; tolerance: exact."""
 
 import ctypes
 import random
@@ -29,9 +32,11 @@ from octopuszk_tpu_torch.utils.bigint import ints_to_words
 torch.set_num_threads(1)
 
 N = 64
-# the harness's field and group ids (BN254a, then BN254b: u^2 = -5, b3 = 39)
+# the harness's field and group ids (BN254a, then BN254b: u^2 = -5, b3 = 39;
+# then the test fields)
 FIELDS = {"fr": (0, tspec.FR), "fq": (1, tspec.FQ), "frb": (2, tspec.FR_B),
-          "fqb": (3, tspec.FQ_B)}
+          "fqb": (3, tspec.FQ_B), "small": (4, tspec.SMALL),
+          "large": (5, tspec.LARGE)}
 GROUP_IDS = {"G1": 1, "G2": 2, "bn254b-G1": 3, "bn254b-G2": 4}
 
 
@@ -48,15 +53,17 @@ HARNESS = r"""
 #include "rcb.cuh"
 #include "ntt.cuh"
 
-// field ids: 0 BN254a Fr, 1 BN254a Fq, 2 BN254b Fr, 3 BN254b Fq; fn is
-// called with a value of the modulus type
+// field ids: 0 BN254a Fr, 1 BN254a Fq, 2 BN254b Fr, 3 BN254b Fq, 4 SMALL,
+// 5 LARGE; fn is called with a value of the modulus type
 template <class Fn>
 static void with_field(int field, Fn fn) {
   switch (field) {
     case 0: fn(FrMod{}); break;
     case 1: fn(FqMod{}); break;
     case 2: fn(FrbMod{}); break;
-    default: fn(FqbMod{}); break;
+    case 3: fn(FqbMod{}); break;
+    case 4: fn(SmallMod{}); break;
+    default: fn(LargeMod{}); break;
   }
 }
 
@@ -250,7 +257,8 @@ static NttView view(const uint32_t* p, const long long* st) {
 
 // the transforms of ntt_kernels.cu's blocks, one after the other; strides:
 // x, pre, post (word, l, outer batch, inner batch) in turn
-extern "C" void ntt_block_op(int dif, const uint32_t* x, const uint32_t* pre,
+extern "C" void ntt_block_op(int field, int dif, const uint32_t* x,
+                             const uint32_t* pre,
                              const uint32_t* post, const long long* st,
                              const uint32_t* tw, uint32_t* out, int log_l,
                              long long batch, long long inner) {
@@ -263,8 +271,10 @@ extern "C" void ntt_block_op(int dif, const uint32_t* x, const uint32_t* pre,
   a.log_l = log_l;
   a.batch = batch;
   a.inner = inner;
-  if (dif) ntt_all<FrMod, true>(a);
-  else ntt_all<FrMod, false>(a);
+  with_field(field, [&](auto m) {
+    if (dif) ntt_all<decltype(m), true>(a);
+    else ntt_all<decltype(m), false>(a);
+  });
 }
 """
 
@@ -457,8 +467,18 @@ def test_ntt_block_stages(host_lib, dif, log_l):
     blocks run them: a batch of 2 x 3 read through a transposed view, with
     a ``pre`` table broadcast over the inner batch and a full ``post``
     table, and without tables, against ntt_block_plain."""
+    _check_ntt_block(host_lib, "fr", dif, log_l)
+
+
+@pytest.mark.parametrize("dif", [True, False])
+def test_ntt_block_stages_small_field(host_lib, dif):
+    """The same transform at L = 32 over the 62-bit test field SMALL."""
+    _check_ntt_block(host_lib, "small", dif, 5)
+
+
+def _check_ntt_block(host_lib, field, dif, log_l):
     from octopuszk_tpu_torch.ops import ntt
-    spec = tspec.FR
+    fid, spec = FIELDS[field]
     L, b1, b2 = 1 << log_l, 2, 3
     rng = random.Random(7)
 
@@ -480,7 +500,7 @@ def test_ntt_block_stages(host_lib, dif, log_l):
             strides += [0] * 4 if t is None else list(t.stride())
         out = torch.empty((8, L, b1, b2), dtype=torch.int32)
         host_lib.ntt_block_op(
-            int(dif), _ptr(x), None if p_ is None else _ptr(p_),
+            fid, int(dif), _ptr(x), None if p_ is None else _ptr(p_),
             None if q_ is None else _ptr(q_),
             (ctypes.c_longlong * 12)(*strides), _ptr(tw), _ptr(out), log_l,
             ctypes.c_longlong(b1 * b2), ctypes.c_longlong(b2))
