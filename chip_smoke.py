@@ -103,7 +103,8 @@ Abel sum's, the window table's; the window combine's is now inside
 chains of ``mont_mul`` and ``add_points`` that run as one launch each
 (``mont_pow``, ``batch_inv_rows``, ``window_table``, ``lane_row_sums``,
 ``tree_sum``, ``prefix_sum``, ``combine_windows``) have records at the
-main path's shapes, and so has ``ntt_block``, which runs every stage of a
+main path's shapes (``combine_windows`` also at four accumulators, one
+warp each), and so has ``ntt_block``, which runs every stage of a
 sub-transform in one launch: the two 4-step passes of the witness map's
 coset NTT and coset iNTT, and one 2^12 transform.  ``butterfly``, the
 reference's per-stage kernel, keeps its record though no path launches it.
@@ -685,14 +686,19 @@ def check_kernels(dev, log2: int, int32_rate: float, reps: int,
                2 * pt_bytes * num_win * lanes,
                add_mads * num_win * lanes * levels)
         del tot, lt
-        wins = rand_point(gen, cd, (num_win,), dev)
-        record("combine_windows", f"{g} [{num_win} windows], c = {cwin}",
-               [8, num_win],
-               lambda: kernels.combine_windows(g, wins, cwin),
-               lambda: kernels.combine_windows_plain(g, wins, cwin),
-               pt_bytes * (num_win + 1),
-               MADS_PER_MONT_MUL * num_win * (
-                   cwin * MONT_MULS["double", cd] + MONT_MULS["add", cd]))
+        # the main path's one accumulator, and four (one warp each)
+        for acc_shape, variant in (
+                ((), f"{g} [{num_win} windows], c = {cwin}"),
+                ((4,), f"{g} [4 x {num_win} windows], c = {cwin} (not a "
+                       "main-path shape)")):
+            nacc = 4 if acc_shape else 1
+            wins = rand_point(gen, cd, acc_shape + (num_win,), dev)
+            record("combine_windows", variant, [8, *acc_shape, num_win],
+                   lambda: kernels.combine_windows(g, wins, cwin),
+                   lambda: kernels.combine_windows_plain(g, wins, cwin),
+                   pt_bytes * nacc * (num_win + 1),
+                   MADS_PER_MONT_MUL * nacc * num_win * (
+                       cwin * MONT_MULS["double", cd] + MONT_MULS["add", cd]))
         del wins
         # (e) double_points: one double of one point per window, the
         # doubling chains of the main path in one launch each (the Abel

@@ -31,7 +31,9 @@ __device__ __forceinline__ void grid_barrier(unsigned* count,
 
 // How the threads of a cooperative launch share a level's items (rows x
 // per_row): every block takes every grid-stride item in turn; the levels
-// meet at grid_barrier.
+// meet at grid_barrier.  Work kept on one block: the block's share of n
+// items (``blocks``), a thread's share of the block's (``threads``), and
+// the block's barrier (``sync``).
 struct GridSched {
   unsigned* count;
   unsigned target;
@@ -40,6 +42,13 @@ struct GridSched {
             (size_t)gridDim.x * blockDim.x, rows * per_row};
   }
   __device__ void barrier() { grid_barrier(count, target); }
+  __device__ ItemRange blocks(size_t n) const {
+    return {blockIdx.x, gridDim.x, n};
+  }
+  __device__ ItemRange threads(size_t n) const {
+    return {threadIdx.x, blockDim.x, n};
+  }
+  __device__ void sync() const { __syncthreads(); }
 };
 
 // A cooperative launch of ``kernel`` with as many blocks as the level's

@@ -196,26 +196,6 @@ __device__ __forceinline__ Pt<C> pt_identity() {
 // the plain versions'.
 // ---------------------------------------------------------------------------
 
-// Entry d of window ``win`` of a fixed-base table (msm._window_table):
-// from the identity, for b = 0 .. w-1 where bit b of d is set, add
-// [2^(win w + b)] G.  [2^0] G is ``base`` (one point); [2^j] G for j >= 1
-// is point j - 1 of ``powers`` (npow points, the doubling chain).
-template <class C>
-__device__ __forceinline__ Pt<C> window_entry(const PointPtrs& base,
-                                              const PointPtrs& powers,
-                                              size_t npow, int win,
-                                              unsigned d, int w) {
-  Pt<C> acc = pt_identity<C>();
-#pragma unroll 1
-  for (int b = 0; b < w; b++) {
-    if (!((d >> b) & 1u)) continue;
-    const int j = win * w + b;
-    acc = pt_add(acc, j == 0 ? load_point<C>(base, 1, 0)
-                             : load_point<C>(powers, npow, (size_t)j - 1));
-  }
-  return acc;
-}
-
 // The row loop of msm._scan_sum for one lane: from the identity, add the
 // lane's ``rows`` positions lane * rows + r of the batch row that starts
 // at ``at``, in order; a position at or past n is the identity padding.
@@ -343,19 +323,66 @@ __device__ __forceinline__ void prefix_sum_rows(const PointPtrs& in,
   }
 }
 
-// msm._combine_windows for one accumulator: from the identity, most
-// significant window first, acc = [2^c] acc + W_j over the ``num_win``
-// window results at at, at + 1, ...
+// A fixed-base window table (msm._window_table) round by round.  The
+// masked loop adds the set bits of an entry's digit d in increasing order
+// from the identity, so for d in [2^t, 2^(t+1)) the entry without its top
+// bit t is the prefix of d's chain:
+//   T[win][0] = the identity (0, 1, 0)
+//   T[win][d] = pt_add(T[win][d - 2^t], [2^(win w + t)] G)
+// the same add with the same operands in the same order, so the same
+// words, and one add per entry: outerc (2^w - 1) in all.  Round t makes
+// the entries [2^t, 2^(t+1)) of every window from those of the rounds
+// before it.  [2^0] G is ``base`` (one point); [2^j] G for j >= 1 is point
+// j - 1 of ``powers`` (npow points, the doubling chain).  ``out``: [8,
+// outerc, 2^w].
 template <class C>
-__device__ __forceinline__ Pt<C> combine_windows(const PointPtrs& wins,
-                                                 size_t stride, size_t at,
-                                                 int num_win, int c) {
-  Pt<C> acc = pt_identity<C>();
+__device__ __forceinline__ void table_add(const PointPtrs& base,
+                                          const PointPtrs& powers,
+                                          size_t npow, const PointPtrs& out,
+                                          int w, int outerc, size_t win,
+                                          int t, size_t j) {
+  const size_t entries = (size_t)outerc << w, row = win << w;
+  const size_t k = win * w + t;
+  const Pt<C> g = k == 0 ? load_point<C>(base, 1, 0)
+                         : load_point<C>(powers, npow, k - 1);
+  store_point(pt_add(load_point<C>(out, entries, row + j), g), out, entries,
+              row + ((size_t)1 << t) + j);
+}
+
+// The whole table: the first ``block_rounds`` rounds of each window on one
+// block (``sched.blocks`` gives the block its windows, ``sched.threads``
+// a thread its entries, ``sched.sync()`` separates the rounds), the rest
+// across the grid (``sched.range``, ``sched.barrier()`` before each round,
+// as for tree_sum_rows).  A round reads only entries that earlier rounds
+// wrote.  One call of table_add in the loop: a second inlined G2 add
+// doubles the kernel's registers and spills.
+template <class C, class Sched>
+__device__ __forceinline__ void window_table_rounds(
+    const PointPtrs& base, const PointPtrs& powers, size_t npow, int w,
+    int outerc, const PointPtrs& out, int block_rounds, Sched& sched) {
+  const size_t entries = (size_t)outerc << w;
+  const ItemRange mine = sched.blocks(outerc);
+  const ItemRange zero = sched.threads(1);
+  for (size_t win = mine.first; win < mine.end; win += mine.step)
+    for (size_t i = zero.first; i < zero.end; i += zero.step)
+      store_point(pt_identity<C>(), out, entries, win << w);
 #pragma unroll 1
-  for (int j = num_win - 1; j >= 0; j--) {
+  for (int t = 0; t < w; t++) {
+    const size_t half = (size_t)1 << t;
+    // on a block: its windows, and per window the thread's entries; across
+    // the grid: one pass over the thread's items (window, entry)
+    const bool on_block = t < block_rounds;
+    if (on_block) sched.sync();
+    else sched.barrier();
+    const ItemRange wins = on_block ? mine : ItemRange{0, 1, 1};
+    const ItemRange it = on_block ? sched.threads(half)
+                                  : sched.range(outerc, half);
 #pragma unroll 1
-    for (int k = 0; k < c; k++) acc = pt_double(acc);
-    acc = pt_add(acc, load_point<C>(wins, stride, at + j));
+    for (size_t v = wins.first; v < wins.end; v += wins.step) {
+#pragma unroll 1
+      for (size_t i = it.first; i < it.end; i += it.step)
+        table_add<C>(base, powers, npow, out, w, outerc,
+                     on_block ? v : i >> t, t, on_block ? i : i & (half - 1));
+    }
   }
-  return acc;
 }

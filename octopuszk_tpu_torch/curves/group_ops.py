@@ -274,6 +274,15 @@ def to_affine(ops, p):
     return _to_affine(ops, p, ops.inv)
 
 
+def normalize_z1(ops, p):
+    """Rescale to Z = 1 (the identity stays (0, 1, 0))."""
+    x, y, inf = to_affine(ops, p)
+    shape, dev = tuple(leaf(x).shape[1:]), leaf(x).device
+    one = ops.one(shape, dev)
+    z = ops.select(inf, ops.zero(shape, dev), one)
+    return (x, ops.select(inf, one, y), z)
+
+
 def to_affine_fast(ops, p):
     """The same through the O(n) two-level batched inverse
     (fp.batch_inv_rows).  Flat [8, n] batches only."""

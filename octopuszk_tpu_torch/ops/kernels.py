@@ -124,7 +124,7 @@ LIBRARIES = {
 TEST_FIELDS = "fields"
 GATHER_CURVE = "bn254a"
 HEADERS = ("field.cuh", "fp2.cuh", "rcb.cuh", "grid.cuh", "ntt.cuh",
-           "curve.cuh")
+           "curve.cuh", "lanes.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -306,7 +306,7 @@ def _argtypes():
                          ll, ll, vp],
         "oz_mont_pow": [ci, vp, vp, ll, words, ci, vp],
         "oz_batch_inv_rows": [ci, vp, vp, ll, ll, words, ci, vp],
-        "oz_window_table": [ci, addrs, addrs, ll, ci, ci, addrs, vp],
+        "oz_window_table": [ci, addrs, addrs, ll, ci, ci, addrs, vp, vp],
         "oz_combine_windows": [ci, addrs, ll, ci, ci, addrs, vp],
         "oz_lane_row_sums": [ci, addrs, ll, ll, ll, addrs, vp],
         "oz_tree_sum": [ci, addrs, addrs, ll, ll, addrs, vp, vp],
@@ -856,11 +856,13 @@ def window_table_plain(group_name: str, base, powers, w: int, outerc: int):
 
 def window_table(group_name: str, base, powers, w: int, outerc: int):
     """Fixed-base window table T[win][d] = [d 2^(w win)] G, coordinates
-    [8, outerc, 2^w], in one launch: one thread per entry adds, from the
-    identity, [2^(win w + b)] G for each set bit b of d.  ``base``: the
-    point G (batch-less [8] or [8, 1]); ``powers``: [8, k] with point
-    j - 1 = [2^j] G, k >= outerc w - 1 (``double_points(..., every_step=
-    True)``)."""
+    [8, outerc, 2^w], in one launch of w rounds: round t makes the entries
+    d in [2^t, 2^(t+1)) of every window, T[win][d - 2^t] + [2^(win w + t)]
+    G (the masked loop's last add for d, so the same words), one add per
+    entry; the first rounds on one block per window, the rest across the
+    card behind a grid-wide barrier.  ``base``: the point G (batch-less
+    [8] or [8, 1]); ``powers``: [8, k] with point j - 1 = [2^j] G, k >=
+    outerc w - 1 (``double_points(..., every_step=True)``)."""
     from octopuszk_tpu_torch.curves.group_ops import rebuild_coords
     if not (isinstance(w, int) and isinstance(outerc, int)
             and 1 <= w <= 24 and outerc >= 1):
@@ -879,9 +881,11 @@ def window_table(group_name: str, base, powers, w: int, outerc: int):
         return window_table_plain(group_name, base, powers, w, outerc)
     fb = [c.reshape(NUM_WORDS, 1) for c in fb]
     outs = _points_out(fb, (NUM_WORDS, outerc, 1 << w))
+    count = torch.zeros(1, dtype=torch.int32, device=fb[0].device)
     fn, curve = _group_entry(group_name, "oz_window_table")
     rc = _launch(fn, fb[0].device, cd, _addr_array(fb), _addr_array(fpw),
-                 fpw[0].shape[1], w, outerc, _addr_array(outs))
+                 fpw[0].shape[1], w, outerc, _addr_array(outs),
+                 count.data_ptr())
     _check(rc, "window_table")
     CURVE_LAUNCHES[curve]["window_table"] += 1
     return rebuild_coords(outs, cd)
@@ -905,7 +909,9 @@ def combine_windows_plain(group_name: str, wins, c: int):
 def combine_windows(group_name: str, wins, c: int):
     """Pippenger's window combination in one launch: window results [8,
     *batch, num_win] (least significant window first) -> [8, *batch];
-    one thread per accumulator doubles c times and adds per window."""
+    one warp per accumulator doubles c times and adds per window, each
+    field element spread over eight lanes and a formula's independent
+    products on the warp's four groups of lanes (csrc/lanes.cuh)."""
     from octopuszk_tpu_torch.curves.group_ops import rebuild_coords
     if not isinstance(c, int) or c < 0:
         raise ValueError(f"c must be a non-negative int, got {c!r}")

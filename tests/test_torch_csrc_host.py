@@ -50,8 +50,71 @@ HARNESS = r"""
 #define __forceinline__ inline
 #define __noinline__
 #include <vector>
-#include "rcb.cuh"
+#include "lanes.cuh"
 #include "ntt.cuh"
+
+// A warp emulated by a loop over its 32 lanes, for lanes.cuh: each value
+// holds every lane's, each operation runs lane by lane.
+template <class T>
+struct Lanes {
+  T v[32];
+  Lanes() = default;
+  Lanes(T x) {
+    for (int l = 0; l < 32; l++) v[l] = x;
+  }
+  template <class S>
+  explicit Lanes(const Lanes<S>& o) {
+    for (int l = 0; l < 32; l++) v[l] = (T)o.v[l];
+  }
+#define LANES_OP(R, op)                                      \
+  friend R operator op(const Lanes& a, const Lanes& b) {     \
+    R r;                                                     \
+    for (int l = 0; l < 32; l++) r.v[l] = a.v[l] op b.v[l];  \
+    return r;                                                \
+  }
+  LANES_OP(Lanes, +) LANES_OP(Lanes, -) LANES_OP(Lanes, *)
+  LANES_OP(Lanes, &) LANES_OP(Lanes, |) LANES_OP(Lanes, ^)
+  LANES_OP(Lanes, <<) LANES_OP(Lanes, >>)
+  LANES_OP(Lanes<bool>, ==) LANES_OP(Lanes<bool>, !=) LANES_OP(Lanes<bool>, <)
+#undef LANES_OP
+  friend Lanes sel(const Lanes<bool>& c, const Lanes& a, const Lanes& b) {
+    Lanes r;
+    for (int l = 0; l < 32; l++) r.v[l] = c.v[l] ? a.v[l] : b.v[l];
+    return r;
+  }
+};
+
+struct HostLanes {
+  typedef Lanes<uint32_t> U32;
+  typedef Lanes<uint64_t> U64;
+  typedef Lanes<bool> Pred;
+  static U32 lane() {
+    U32 r;
+    for (int l = 0; l < 32; l++) r.v[l] = l;
+    return r;
+  }
+  static U32 shfl(const U32& v, const U32& src) {
+    U32 r;
+    for (int l = 0; l < 32; l++) r.v[l] = v.v[src.v[l] & 31u];
+    return r;
+  }
+  static uint32_t ballot(const Pred& p) {
+    uint32_t m = 0;
+    for (int l = 0; l < 32; l++) m |= (uint32_t)p.v[l] << l;
+    return m;
+  }
+  static U32 load(const uint32_t* base, size_t stride, size_t i,
+                  const U32& k) {
+    U32 r;
+    for (int l = 0; l < 32; l++) r.v[l] = base[k.v[l] * stride + i];
+    return r;
+  }
+  static void store(uint32_t* base, size_t stride, size_t i, const U32& k,
+                    const U32& v, const Pred& on) {
+    for (int l = 0; l < 32; l++)
+      if (on.v[l]) base[k.v[l] * stride + i] = v.v[l];
+  }
+};
 
 // field ids: 0 BN254a Fr, 1 BN254a Fq, 2 BN254b Fr, 3 BN254b Fq, 4 SMALL,
 // 5 LARGE; fn is called with a value of the modulus type
@@ -103,6 +166,32 @@ extern "C" void field_op(int field, int op, const uint32_t* a,
   with_field(field, [&](auto m) { binary<decltype(m)>(op, a, b, out, n); });
 }
 
+// lanes.cuh's product, add and subtract (op 0, 1, 2) on emulated warps,
+// four elements a warp: element i + g on group g (n: a multiple of 4)
+template <class M>
+static void lanes_binary(int op, const uint32_t* a, const uint32_t* b,
+                         uint32_t* out, long n) {
+  typedef lanes::LFp<M, HostLanes> E;
+  for (long i = 0; i < n; i += 4) {
+    E x, y, r;
+    for (int l = 0; l < 32; l++) {
+      x.w.v[l] = a[(l & 7) * n + i + (l >> 3)];
+      y.w.v[l] = b[(l & 7) * n + i + (l >> 3)];
+    }
+    if (op == 0) r.w = lanes::mont_mul<M, HostLanes>(x.w, y.w);
+    else if (op == 1) r = lanes::add(x, y);
+    else r = lanes::sub(x, y);
+    for (int l = 0; l < 32; l++) out[(l & 7) * n + i + (l >> 3)] = r.w.v[l];
+  }
+}
+
+extern "C" void lanes_field_op(int field, int op, const uint32_t* a,
+                               const uint32_t* b, uint32_t* out, long n) {
+  with_field(field, [&](auto m) {
+    lanes_binary<decltype(m)>(op, a, b, out, n);
+  });
+}
+
 template <class M>
 static void load(Fp<M>& c, uint32_t* const* p, int ci, long n, long i) {
   c = fp_load<M>(p[ci], n, i);
@@ -143,9 +232,29 @@ static void points(int op, uint32_t* const* p, uint32_t* const* q,
   }
 }
 
+static PointPtrs ptrs(uint32_t* const* a, int group);
+
+// lanes.cuh's add (op 4) and double (op 5), one emulated warp a point
+template <class C>
+static void lanes_points(int op, int group, uint32_t* const* p,
+                         uint32_t* const* q, uint32_t* const* out, long n) {
+  typedef typename lanes::Spread<C, HostLanes>::type S;
+  const PointPtrs pp = ptrs(p, group), pq = ptrs(q, group),
+                  po = ptrs(out, group);
+  for (long i = 0; i < n; i++) {
+    const Pt<S> a = lanes::load_point<S>(pp, n, i);
+    lanes::store_point(op == 4 ? lanes::pt_add(a, lanes::load_point<S>(pq, n, i))
+                               : lanes::pt_double(a),
+                       po, n, i);
+  }
+}
+
 extern "C" void point_op(int group, int op, uint32_t* const* p,
                          uint32_t* const* q, uint32_t* const* out, long n) {
-  with_group(group, [&](auto c) { points<decltype(c)>(op, p, q, out, n); });
+  with_group(group, [&](auto c) {
+    if (op >= 4) lanes_points<decltype(c)>(op, group, p, q, out, n);
+    else points<decltype(c)>(op, p, q, out, n);
+  });
 }
 
 // --- the chains that run as one launch each, every thread's work in turn
@@ -189,29 +298,31 @@ static PointPtrs ptrs(uint32_t* const* a, int group) {
   return p;
 }
 
-// one thread: every item of a level in order, no barrier needed
+// one thread: every item of a level in order, no barrier needed; one block
+// of one thread
 struct HostSched {
   ItemRange range(size_t rows, size_t per_row) const {
     return {0, 1, rows * per_row};
   }
   void barrier() {}
+  ItemRange blocks(size_t n) const { return {0, 1, n}; }
+  ItemRange threads(size_t n) const { return {0, 1, n}; }
+  void sync() {}
 };
 
-// op: 0 window table (a = base, b = powers, n = npow, x = w, y = outerc),
-// 1 lane row sums (a = points [batch, n], x = width), 2 tree (a = points,
-// b = scratch), 3 prefix (a = points, b = scratch), 4 combine (a = window
-// results [batch, n], x = c)
+// op: 0 window table (a = base, b = powers, n = npow, x = w, y = outerc,
+// batch = the rounds run per window before the grid's), 1 lane row sums
+// (a = points [batch, n], x = width), 2 tree (a = points, b = scratch), 3
+// prefix (a = points, b = scratch), 4 combine (a = window results [batch,
+// n], x = c; one emulated warp per row)
 template <class C>
 static void chain(int op, int group, uint32_t* const* a, uint32_t* const* b,
                   uint32_t* const* out, long batch, long n, int x, int y) {
   const PointPtrs pa = ptrs(a, group), po = ptrs(out, group);
   HostSched sched;
   if (op == 0) {
-    const size_t entries = (size_t)y << x;
-    for (size_t t = 0; t < entries; t++)
-      store_point(window_entry<C>(pa, ptrs(b, group), n, (int)(t >> x),
-                                  (unsigned)(t & ((1u << x) - 1)), x),
-                  po, entries, t);
+    window_table_rounds<C>(pa, ptrs(b, group), n, x, y, po, (int)batch,
+                           sched);
   } else if (op == 1) {
     const size_t rows = (n + x - 1) / x;
     for (long i = 0; i < batch * x; i++)
@@ -222,9 +333,11 @@ static void chain(int op, int group, uint32_t* const* a, uint32_t* const* b,
   } else if (op == 3) {
     prefix_sum_rows<C>(pa, ptrs(b, group), po, batch, n, sched);
   } else {
+    typedef typename lanes::Spread<C, HostLanes>::type S;
     for (long i = 0; i < batch; i++)
-      store_point(combine_windows<C>(pa, batch * n, i * n, (int)n, x), po,
-                  batch, i);
+      lanes::store_point(
+          lanes::combine_windows<S>(pa, batch * n, i * n, (int)n, x), po,
+          batch, i);
   }
 }
 
@@ -331,6 +444,33 @@ def test_field_arithmetic(host_lib, field):
         assert torch.equal(out, w), (field, op)
 
 
+@pytest.mark.parametrize("field", sorted(FIELDS))
+def test_lane_field_arithmetic(host_lib, field):
+    """lanes.cuh's product, add and subtract, each element spread over the
+    eight lanes of a group of an emulated warp and four elements a warp
+    (the groups' carries resolved by ballot), on the edge words and on
+    pairs whose carry or borrow lands on a word of p minus one or on all
+    ones (a + b = p - 1 and p through a carry out of word 0, a - b
+    borrowing through zero words)."""
+    fid, spec = FIELDS[field]
+    a = _words(_field_values(spec.p, 1))
+    b = _words(_field_values(spec.p, 2))
+    b[:, :5] = a[:, :5]
+    p, p0 = spec.p, spec.p & 0xFFFFFFFF
+    pairs = [(p - 2**32, 2**32 - 1), (p - 2**32, 2**32), (p - 1, 1),
+             (p - p0 - 1, p0 + 1), (0, 1), (2**32, 1), (2**64, 2**64 - 1)]
+    a[:, 5:12] = _words([x for x, _ in pairs])
+    b[:, 5:12] = _words([y for _, y in pairs])
+    from octopuszk_tpu_torch.fields import fp
+    want = {0: kernels.mont_mul_plain(spec, a, b), 1: fp.add(spec, a, b),
+            2: fp.sub(spec, a, b)}
+    for op, w in want.items():
+        out = torch.empty_like(a)
+        host_lib.lanes_field_op(fid, op, _ptr(a), _ptr(b), _ptr(out),
+                                ctypes.c_long(N))
+        assert torch.equal(out, w), (field, op)
+
+
 def _flat(p):
     out = []
     for c in p:
@@ -341,9 +481,11 @@ def _flat(p):
 @pytest.mark.parametrize("gname", sorted(GROUP_IDS))
 def test_point_formulas(host_lib, gname):
     """Full add, double and mixed add (the scans' step, in the order of
-    rcb.cuh) and the product by b3 on points of the curve with the
-    identity, equal and inverse pairs among them, and on random field
-    elements off the curve (the formulas are polynomials)."""
+    rcb.cuh), the product by b3, and lanes.cuh's add and double (one
+    emulated warp a point, a formula's products on its four groups) on
+    points of the curve with the identity, equal and inverse pairs among
+    them, and on random field elements off the curve (the formulas are
+    polynomials)."""
     from octopuszk_tpu_torch.curves import group_ops
     g = _group(gname)
     cd = g.coord_dim
@@ -366,6 +508,7 @@ def test_point_formulas(host_lib, gname):
                 1: kernels.double_points_plain(gname, p),
                 2: group_ops.mixed_add(ops, p, (x2, y2)),
                 3: (ops.mul_b3(p[0]), p[1], p[2])}
+        want[4], want[5] = want[0], want[1]
         fp_, fq_ = _flat(p), _flat(q)
         for op, w in want.items():
             outs = [torch.empty_like(t) for t in fp_]
@@ -415,10 +558,12 @@ def _chain(host_lib, op, gname, a, b, out_shape, batch, n, x=0, y=0):
 
 @pytest.mark.parametrize("gname", sorted(GROUP_IDS))
 def test_point_chains(host_lib, gname):
-    """The window table's entries, the lane row sums, the pairwise tree
-    (with its adds of the identity at n = 13, none at n = 8, a copy at
+    """The window table round by round (every round across the grid, two
+    on one block first, all on one block), the lane row sums, the pairwise
+    tree (with its adds of the identity at n = 13, none at n = 8, a copy at
     n = 1), the Hillis-Steele prefix through two buffers and the window
-    combine, against the plain versions' loops."""
+    combine on emulated warps (two rows), against the plain versions'
+    loops."""
     from octopuszk_tpu_torch.curves import group_ops
     g = _group(gname)
     rng = random.Random(5)
@@ -433,10 +578,12 @@ def test_point_chains(host_lib, gname):
     base = g.points_to_device(host[:1], "cpu")
     powers = kernels.double_points_plain(gname, base, outerc * w, True)
     powers = group_ops._map_coords(powers, lambda c: c[:, 0].contiguous())
-    got = _chain(host_lib, 0, gname, base, powers, (8, outerc, 1 << w), 1,
-                 outerc * w, w, outerc)
     want = kernels.window_table_plain(gname, base, powers, w, outerc)
-    assert all(torch.equal(x, y) for x, y in zip(got, _flat(want)))
+    for block_rounds in (0, 2, w):
+        got = _chain(host_lib, 0, gname, base, powers, (8, outerc, 1 << w),
+                     block_rounds, outerc * w, w, outerc)
+        assert all(torch.equal(x, y) for x, y in zip(got, _flat(want))), \
+            block_rounds
 
     got = _chain(host_lib, 1, gname, rows, None, (8, 2, 4), 2, 13, 4)
     want = kernels.lane_row_sums_plain(gname, rows, 4)

@@ -2,11 +2,13 @@
 curves/group_ops.py, the plain kernels on the CPU) against the JAX
 reference's host curve in python ints: the cases of tests/test_curves.py
 (host round trip, add and double, the add's edge cases, mixed add,
-scalar multiplication, the tree reduction), G1 and G2, with the
-reference's random points; and the port's host curve against the
+scalar multiplication, the tree reduction) and ``normalize_z1``, G1
+and G2, with the reference's random points; and the port's host curve against the
 reference's.  The reference's device groups are not called: their XLA:CPU
-compiles are what tests/test_curves.py pays for.  Tolerance: exact."""
+compiles are what tests/test_curves.py pays for; only ``normalize_z1``
+runs on both sides (one compile of 1-6 s a group).  Tolerance: exact."""
 
+import numpy as np
 import pytest
 import torch
 
@@ -95,3 +97,27 @@ def test_tree_reduce(rng, name):
         acc = rgrp.host.add(acc, p)
     assert grp.points_to_host(
         group_ops._map_coords(got, lambda c: c[..., None])) == [acc]
+
+
+@pytest.mark.parametrize("name", sorted(GROUPS))
+def test_normalize_z1(rng, name):
+    """normalize_z1 on doubled points (Z not 1) and the identity, exactly
+    the reference's words, the identity as (0, 1, 0)."""
+    import jax
+    import jax.numpy as jnp
+    from octopuszk_tpu.curves import group_ops as rgroup_ops
+    from octopuszk_tpu_torch import convert
+    grp, rgrp = GROUPS[name]
+    ps = _rand_points(rng, rgrp, 3) + [None]
+    p = grp.double(grp.points_to_device(ps, "cpu"))
+    got = group_ops.normalize_z1(grp.ops, p)
+    rp = jax.tree_util.tree_map(jnp.asarray, convert.points_to_ref(p))
+    want = jax.jit(lambda q: rgroup_ops.normalize_z1(rgrp.ops, q))(rp)
+    want = convert.points_from_ref(
+        jax.tree_util.tree_map(np.asarray, want), "cpu")
+    assert all(torch.equal(a, b) for a, b in zip(
+        group_ops.flatten_coords(got), group_ops.flatten_coords(want)))
+    assert grp.points_to_host(got) == [rgrp.host.add(q, q) for q in ps]
+    ident = group_ops.infinity(grp.ops, (1,), "cpu")
+    assert all(torch.equal(a[..., -1:], b) for a, b in zip(
+        group_ops.flatten_coords(got), group_ops.flatten_coords(ident)))
