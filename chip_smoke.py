@@ -99,7 +99,11 @@ line holds the counts per path and kernel (and per curve); the ``env``
 line holds ptxas's registers and spills for every kernel and unit.
 ``double_points`` has one record per doubling chain of the main path (the
 Abel sum's, the window table's; the window combine's is now inside
-``combine_windows``), timed per chain: one launch each.  The
+``combine_windows``), timed per chain: one launch each.  The records of
+chains (``double_points``, ``lane_row_sums``, ``combine_windows``) carry
+``critical_path_rounds`` beside the operations bound: the dependent rounds
+of field products on one chain's path (one product a round on a thread,
+up to four on a warp).  The
 chains of ``mont_mul`` and ``add_points`` that run as one launch each
 (``mont_pow``, ``batch_inv_rows``, ``window_table``, ``lane_row_sums``,
 ``tree_sum``, ``prefix_sum``, ``combine_windows``) have records at the
@@ -259,6 +263,14 @@ PROFILER_CURVES = {"zksnark-large": "bn254b"}
 MONT_MULS = {("add", 1): 12, ("add", 2): 12 * 3 + 2 * 3,
              ("double", 1): 8, ("double", 2): 8 * 3 + 3,
              ("mixed", 1): 11, ("mixed", 2): 11 * 3 + 2 * 3}
+# dependent rounds of products per curve operation on one warp (lanes.cuh:
+# a formula's independent products four at a time on the warp's 8-lane
+# groups, an Fp2 product three of them; on G1 the products by b3 are adds)
+WARP_ROUNDS = {("add", 1): 2 + 2, ("add", 2): 5 + 2 + 5,
+               ("double", 1): 1 + 1, ("double", 2): 3 + 1 + 3}
+# products in turn per add on each thread of a pair (rcb.cuh pt_add_pair:
+# half of each level, and on G2 one of the two products by b3)
+PAIR_ROUNDS = {1: 3 + 3, 2: 9 + 3 + 9}
 
 
 def emit(obj):
@@ -372,13 +384,17 @@ def recorder(dev, reps: int, int32_rate: float, curve: str, records: list):
     a curve's, or the test fields') and appends it to ``records``."""
 
     def record(name, variant, shape, kernel_fn, plain_fn, bytes_moved, mads,
-               library_fn=None, part=None):
+               library_fn=None, part=None, critical=None):
         """kernel_fn, at ``shape``, is timed, and the output of its last
         timed launch is compared with plain_fn on the same inputs;
         library_fn, where given, is one PyTorch call that computes the same
         function, timed likewise.  ``part``: (what, take) where plain_fn
         computes only a part of the output, ``take`` cuts that part from
-        the kernel's output (``plain_ms`` is then the part's time)."""
+        the kernel's output (``plain_ms`` is then the part's time).
+        ``critical``: for a chain, its critical path in dependent rounds of
+        field products (``critical_path_rounds``; a round is one product on
+        one thread, up to four on a warp, lanes.cuh), beside the
+        operations bound."""
         ms, got = time_ms(kernel_fn, dev, reps)
         if part is not None:
             got = part[1](got)
@@ -404,7 +420,7 @@ def recorder(dev, reps: int, int32_rate: float, curve: str, records: list):
             "shape": shape, "equal": ok, "max_abs_err": diff, "ms": ms,
             "plain_ms": plain_ms, "plain_part": part and part[0],
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
-            "tolerance": "exact"})
+            "critical_path_rounds": critical, "tolerance": "exact"})
         if not ok:
             raise SystemExit(f"kernel {name} ({variant}) differs from its "
                              f"plain version: {records[-1]}")
@@ -666,7 +682,8 @@ def check_kernels(dev, log2: int, int32_rate: float, reps: int,
                lambda: kernels.lane_row_sums(g, rest, width),
                lambda: kernels.lane_row_sums_plain(g, rest, width),
                pt_bytes * num_win * (nbk + width),
-               add_mads * num_win * width * rows_s)
+               add_mads * num_win * width * rows_s,
+               critical=rows_s * PAIR_ROUNDS[cd])
         del rest
         tot = rand_point(gen, cd, (num_win, width), dev)
         lt = rand_point(gen, cd, (num_win, lanes), dev)
@@ -698,7 +715,9 @@ def check_kernels(dev, log2: int, int32_rate: float, reps: int,
                    lambda: kernels.combine_windows_plain(g, wins, cwin),
                    pt_bytes * nacc * (num_win + 1),
                    MADS_PER_MONT_MUL * nacc * num_win * (
-                       cwin * MONT_MULS["double", cd] + MONT_MULS["add", cd]))
+                       cwin * MONT_MULS["double", cd] + MONT_MULS["add", cd]),
+                   critical=num_win * (cwin * WARP_ROUNDS["double", cd]
+                                       + WARP_ROUNDS["add", cd]))
         del wins
         # (e) double_points: one double of one point per window, the
         # doubling chains of the main path in one launch each (the Abel
@@ -710,7 +729,8 @@ def check_kernels(dev, log2: int, int32_rate: float, reps: int,
                lambda: kernels.double_points(g, p1),
                lambda: kernels.double_points_plain(g, p1),
                6 * cd * ELEM_BYTES * num_win,
-               MONT_MULS["double", cd] * MADS_PER_MONT_MUL * num_win)
+               MONT_MULS["double", cd] * MADS_PER_MONT_MUL * num_win,
+               critical=MONT_MULS["double", cd])
         one = _first(p1)
         for variant, pt, times, every in (
                 ("Abel chain", p1, cwin - 1, False),
@@ -725,13 +745,16 @@ def check_kernels(dev, log2: int, int32_rate: float, reps: int,
                    lambda: kernels.double_points(g, pt, times, every),
                    lambda: kernels.double_points_plain(g, pt, times, every),
                    3 * cd * ELEM_BYTES * (npts + outs),
-                   MONT_MULS["double", cd] * MADS_PER_MONT_MUL * npts * times)
+                   MONT_MULS["double", cd] * MADS_PER_MONT_MUL * npts * times,
+                   critical=times * (WARP_ROUNDS["double", cd] if times > 1
+                                     else MONT_MULS["double", cd]))
         record("double_points", g + " (2^16 points, not a main-path shape)",
                [8, num_win, nb],
                lambda: kernels.double_points(g, p),
                lambda: kernels.double_points_plain(g, p),
                6 * cd * ELEM_BYTES * cnt,
-               MONT_MULS["double", cd] * MADS_PER_MONT_MUL * cnt)
+               MONT_MULS["double", cd] * MADS_PER_MONT_MUL * cnt,
+               critical=MONT_MULS["double", cd])
         del p, q, p1, one
 
         # (f) scan_accumulate_mixed: all windows of the one chunk

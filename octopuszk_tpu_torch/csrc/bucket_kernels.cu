@@ -10,8 +10,19 @@
 // Bound on this card: integer multiply throughput (12 field products per
 // G1 add, 42 per G2 add, against 288 or 576 bytes moved), and for the
 // levels of the tree the dependency between levels.  Design:
-// * lane_row_sums: one thread per (batch row, lane) adds its rows in
-//   order, the running sum in registers (rcb.cuh lane_row_sum).
+// * lane_row_sums: the function fixes 30,720 chains of 32 dependent adds
+//   on the main path (15 windows x 2,048 lanes), about 233 an SM, and one
+//   thread a chain held 255 registers on G2 (spilling), so an SM ran 8
+//   warps of long carry chains at a fifth of the multiply rate.  Two
+//   threads a chain (rcb.cuh lane_row_sum_pair, pt_add_pair): each runs
+//   half of every level of an add's products and the pair trades the
+//   results by shuffles, so a thread's chain is half as long and it holds
+//   about 180 registers on G2, no spill.  Measured against it on the H100
+//   (PERF.md, scripts/chain_designs.py): one thread a chain, the same
+//   with each block's rows staged through shared memory, a warp a chain
+//   with every element spread over 8 lanes (lanes.cuh), an 8-lane group
+//   a chain; all slower on G2, and on G1 none beat one thread a chain by
+//   more than the spread between runs.
 // * tree_sum: tree_reduce keeps only element 0 of a Hillis-Steele suffix
 //   fold, and element 0 is exactly the pairwise tree whose node j at
 //   level l is node j plus node j + 2^(l-1) of the level below (plus the
@@ -31,15 +42,37 @@ namespace {
 using levels::GridSched;
 using levels::kThreads;
 
+// the value of the other thread of a pair (lanes 2k, 2k + 1 of a warp)
+struct ShflPair {
+  template <class M>
+  static __device__ __forceinline__ Fp<M> other(const Fp<M>& a) {
+    Fp<M> r;
+#pragma unroll
+    for (int k = 0; k < 8; k++)
+      r.v[k] = __shfl_xor_sync(0xffffffffu, a.v[k], 1);
+    return r;
+  }
+  template <class M>
+  static __device__ __forceinline__ Fp2<M> other(const Fp2<M>& a) {
+    return {other(a.c0), other(a.c1)};
+  }
+};
+
+// thread 2 i + h of the grid is half h of chain i; a warp's threads stay
+// to the end (they shuffle), those past the last chain repeat it unstored
 template <class C>
 __global__ void __launch_bounds__(kThreads)
 lane_row_sums_kernel(PointPtrs p, size_t batch, size_t n, size_t width,
                      size_t rows, PointPtrs out) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= batch * width) return;
+  const size_t t = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t chains = batch * width;
+  if ((t & ~(size_t)31) >> 1 >= chains) return;   // the whole warp
+  const bool h = t & 1, live = (t >> 1) < chains;
+  const size_t i = live ? t >> 1 : chains - 1;
   const size_t b = i / width, lane = i - b * width;
-  store_point(lane_row_sum<C>(p, batch * n, b * n, n, lane, rows), out,
-              batch * width, i);
+  const Pt<C> acc = lane_row_sum_pair<C, ShflPair>(p, batch * n, b * n, n,
+                                                   lane, rows, h);
+  if (live && !h) store_point(acc, out, chains, i);
 }
 
 template <class C>
@@ -66,8 +99,8 @@ extern "C" int oz_lane_row_sums(int group, const unsigned long long* p,
   cudaStream_t s = (cudaStream_t)stream;
   const int cnt = 3 * group;
   const size_t rows = (size_t)((n + width - 1) / width);
-  const size_t items = (size_t)batch * (size_t)width;
-  const unsigned g = (unsigned)((items + kThreads - 1) / kThreads);
+  const size_t threads = 2 * (size_t)batch * (size_t)width;
+  const unsigned g = (unsigned)((threads + kThreads - 1) / kThreads);
   if (group == 1)
     lane_row_sums_kernel<G1Coord><<<g, kThreads, 0, s>>>(make_ptrs(p, cnt), (size_t)batch, (size_t)n, (size_t)width, rows, make_ptrs(out, cnt));
   else

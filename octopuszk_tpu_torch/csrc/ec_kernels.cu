@@ -4,14 +4,14 @@
 // (_add_kernel) and ::double_points (_double_kernel), instances of
 // pointwise_kernel that trace curves/group_ops.py add / double.
 //
-// Bound on this card: integer multiply throughput and registers.  A G1 add
-// is 12 field products (about 1,700 32-bit multiply-adds) for 288 bytes
-// moved; a G2 add three times the products for twice the bytes.  Design:
-// one thread per point, coordinates word-major so loads coalesce, the whole
-// formula in registers with no intermediate in device memory.  The G2 add
-// keeps about a dozen Fp2 temporaries (192 words) alive, more than the 255
-// registers a thread may hold, so the compiler spills some to local memory;
-// that is accepted here.
+// add_points.  Bound on this card: integer multiply throughput and
+// registers.  A G1 add is 12 field products (about 1,700 32-bit
+// multiply-adds) for 288 bytes moved; a G2 add three times the products
+// for twice the bytes.  Design: one thread per point, coordinates
+// word-major so loads coalesce, the whole formula in registers with no
+// intermediate in device memory.  The G2 add keeps about a dozen Fp2
+// temporaries (192 words) alive, more than the 255 registers a thread may
+// hold, so the compiler spills some to local memory; that is accepted here.
 //
 // double_points runs a whole doubling chain in one launch: ``times``
 // doublings of each point, the point held in registers throughout, and
@@ -19,17 +19,24 @@
 // one more trailing axis (component word k, point i, step j at
 // k * n * times + i * times + j).  The reference runs these chains as
 // fori_loops inside one compiled program (ops/msm.py _abel,
-// _combine_windows, _window_table); run eagerly one double per launch, a
-// chain cost a launch and the host's wrapper call (about 0.07 ms) for a
-// few microseconds of work.  What bounds a chain now is one thread's
-// dependent latency: every double waits on the one before, so a chain of
-// 255 G2 doublings (the window table) is 255 x 27 dependent field products
-// on one thread, and only a shorter product (field.cuh's carry chains)
-// makes it faster.  A warp per point, splitting a double's products over
-// lanes, would cut that latency but leave 31 of 32 lanes of a warp idle
-// for the 1 to 15 points that chains double; it is not worth it here.
+// _window_table); run eagerly one double per launch, a chain cost a launch
+// and the host's wrapper call for a few microseconds of work.
+//
+// The design follows ``times``, the length of the chain:
+// * times = 1, one double of each point: a throughput case, bound like
+//   add_points; one thread per point.
+// * times >= 2, a chain: every double waits on the one before, and the
+//   main path's chains double 1 to 15 points (the window table's 255
+//   doublings of one point, the Abel sum's 16 of one point per window), so
+//   what bounds them is one point's dependent latency, not throughput.
+//   One warp per point (lanes.cuh): each field element spread over the
+//   eight lanes of a group and a double's independent products on the
+//   warp's four groups, so a G1 double is two rounds of products where
+//   one thread runs 8 products in turn, a G2 double seven rounds for 27.
+//   The 31 lanes that one thread would leave idle cost nothing here: no
+//   other work waits for them.
 #include <cuda_runtime.h>
-#include "rcb.cuh"
+#include "lanes.cuh"
 #include "curve.cuh"
 
 namespace {
@@ -44,18 +51,38 @@ add_points_kernel(PointPtrs p, PointPtrs q, PointPtrs out, size_t n) {
   store_point(pt_add(load_point<C>(p, n, i), load_point<C>(q, n, i)), out, n, i);
 }
 
-template <class C, bool EVERY_STEP>
+// times = 1: one thread per point
+template <class C>
 __global__ void __launch_bounds__(kThreads)
-double_points_kernel(PointPtrs p, PointPtrs out, size_t n, int times) {
+double_points_kernel(PointPtrs p, PointPtrs out, size_t n) {
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  Pt<C> q = load_point<C>(p, n, i);
-#pragma unroll 1
-  for (int j = 0; j < times; j++) {
-    q = pt_double(q);
-    if (EVERY_STEP) store_point(q, out, n * times, i * times + j);
+  store_point(pt_double(load_point<C>(p, n, i)), out, n, i);
+}
+
+// times >= 2: one warp per point (the warp's index in the grid)
+template <class C, bool EVERY_STEP>
+__global__ void __launch_bounds__(kThreads)
+double_chain_kernel(PointPtrs p, PointPtrs out, size_t n, int times) {
+  typedef typename lanes::Spread<C, lanes::WarpLanes>::type S;
+  const size_t i = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  if (i >= n) return;                     // the whole warp
+  lanes::double_chain<S>(p, out, n, i, times, EVERY_STEP);
+}
+
+template <class C>
+void launch_double(PointPtrs p, PointPtrs out, size_t n, int times,
+                   bool every_step, cudaStream_t s) {
+  if (times == 1) {
+    const unsigned g = (unsigned)((n + kThreads - 1) / kThreads);
+    double_points_kernel<C><<<g, kThreads, 0, s>>>(p, out, n);
+    return;
   }
-  if (!EVERY_STEP) store_point(q, out, n, i);
+  const unsigned g = (unsigned)((n * 32 + kThreads - 1) / kThreads);
+  if (every_step)
+    double_chain_kernel<C, true><<<g, kThreads, 0, s>>>(p, out, n, times);
+  else
+    double_chain_kernel<C, false><<<g, kThreads, 0, s>>>(p, out, n, times);
 }
 
 }  // namespace
@@ -87,15 +114,10 @@ extern "C" int oz_double_points(int group, const unsigned long long* p,
   if (n <= 0 || times <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int cnt = 3 * group;
-  const unsigned g = (unsigned)(((size_t)n + kThreads - 1) / kThreads);
   const PointPtrs pp = make_ptrs(p, cnt), po = make_ptrs(out, cnt);
-  if (group == 1 && every_step)
-    double_points_kernel<G1Coord, true><<<g, kThreads, 0, s>>>(pp, po, (size_t)n, times);
-  else if (group == 1)
-    double_points_kernel<G1Coord, false><<<g, kThreads, 0, s>>>(pp, po, (size_t)n, times);
-  else if (every_step)
-    double_points_kernel<G2Coord, true><<<g, kThreads, 0, s>>>(pp, po, (size_t)n, times);
+  if (group == 1)
+    launch_double<G1Coord>(pp, po, (size_t)n, times, every_step != 0, s);
   else
-    double_points_kernel<G2Coord, false><<<g, kThreads, 0, s>>>(pp, po, (size_t)n, times);
+    launch_double<G2Coord>(pp, po, (size_t)n, times, every_step != 0, s);
   return (int)cudaGetLastError();
 }

@@ -458,6 +458,23 @@ __device__ __forceinline__ void store_point(const Pt<C>& r, const PointPtrs& p,
   store_coord(r.z, p, 2, n, i);
 }
 
+// kernel (e)'s doubling chain of point i of a batch of n, on one warp:
+// ``times`` doublings; with ``every_step`` each [2^(j+1)]P is stored at
+// i * times + j of a batch of n * times as it is made, else the last at i
+template <class C>
+__device__ __forceinline__ void double_chain(const PointPtrs& p,
+                                             const PointPtrs& out, size_t n,
+                                             size_t i, int times,
+                                             bool every_step) {
+  Pt<C> q = lanes::load_point<C>(p, n, i);
+#pragma unroll 1
+  for (int j = 0; j < times; j++) {
+    q = lanes::pt_double(q);
+    if (every_step) lanes::store_point(q, out, n * times, i * times + j);
+  }
+  if (!every_step) lanes::store_point(q, out, n, i);
+}
+
 // msm._combine_windows for one accumulator, on one warp: from the
 // identity, most significant window first, acc = [2^c] acc + W_j over the
 // ``num_win`` window results at at, at + 1, ...  (the order of rcb.cuh's

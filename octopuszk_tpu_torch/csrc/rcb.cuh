@@ -178,6 +178,62 @@ __device__ __forceinline__ void store_point(const Pt<C>& r, const PointPtrs& p,
   store_coord(r.z, p, 2, n, i);
 }
 
+// a if h, else b, word by word
+template <class M>
+__device__ __forceinline__ Fp<M> choose(bool h, const Fp<M>& a,
+                                        const Fp<M>& b) {
+  Fp<M> r;
+#pragma unroll
+  for (int k = 0; k < 8; k++) r.v[k] = h ? a.v[k] : b.v[k];
+  return r;
+}
+template <class M>
+__device__ __forceinline__ Fp2<M> choose(bool h, const Fp2<M>& a,
+                                         const Fp2<M>& b) {
+  return {choose(h, a.c0, b.c0), choose(h, a.c1, b.c1)};
+}
+
+// P + Q (pt_add, algorithm 7) on the two threads of a pair, h = 0 and 1,
+// each running half the products of each level: thread 0 X1 X2, Y1 Y2,
+// Z1 Z2, b3 t2 and the products of X3 and of Z3's first term; thread 1
+// the three products of sums, b3 t5 and the products of Y3 and of Z3's
+// second term.  X::other(v) is v of the pair's other thread; the products
+// meet after each level.  Both threads return P + Q in pt_add's words:
+// the same products and sums of the same operands in the same order.
+template <class C, class X>
+__device__ __forceinline__ Pt<C> pt_add_pair(const Pt<C>& p, const Pt<C>& q,
+                                             bool h) {
+  const C u0 = mul(choose(h, add(p.x, p.y), p.x),
+                   choose(h, add(q.x, q.y), q.x));
+  const C u1 = mul(choose(h, add(p.y, p.z), p.y),
+                   choose(h, add(q.y, q.z), q.y));
+  const C u2 = mul(choose(h, add(p.x, p.z), p.z),
+                   choose(h, add(q.x, q.z), q.z));
+  const C v0 = X::other(u0), v1 = X::other(u1), v2 = X::other(u2);
+  const C t0 = choose(h, v0, u0), t1 = choose(h, v1, u1);
+  const C t2 = choose(h, v2, u2);
+  const C t3 = sub(choose(h, u0, v0), add(t0, t1));
+  const C t4 = sub(choose(h, u1, v1), add(t1, t2));
+  const C t5 = sub(choose(h, u2, v2), add(t0, t2));
+  const C three_t0 = add(dbl(t0), t0);
+  const C w = mul_b3(choose(h, t5, t2)), wx = X::other(w);
+  const C b3t2 = choose(h, wx, w), y3 = choose(h, w, wx);
+  const C z3 = add(t1, b3t2);
+  const C t1m = sub(t1, b3t2);
+  // thread 0: t3 t1, t4 y3 (X3) and z3 t4; thread 1: y3 3t0, t1 z3 (Y3)
+  // and 3t0 t3
+  const C m0 = mul(choose(h, y3, t3), choose(h, three_t0, t1m));
+  const C m1 = mul(choose(h, t1m, t4), choose(h, z3, y3));
+  const C m2 = mul(choose(h, three_t0, z3), choose(h, t3, t4));
+  const C o = choose(h, add(m0, m1), sub(m0, m1));
+  const C ox = X::other(o), m2x = X::other(m2);
+  Pt<C> r;
+  r.x = choose(h, ox, o);
+  r.y = choose(h, o, ox);
+  r.z = add(choose(h, m2x, m2), choose(h, m2, m2x));
+  return r;
+}
+
 template <class C>
 __device__ __forceinline__ Pt<C> pt_identity() {
   Pt<C> r;
@@ -196,20 +252,24 @@ __device__ __forceinline__ Pt<C> pt_identity() {
 // the plain versions'.
 // ---------------------------------------------------------------------------
 
-// The row loop of msm._scan_sum for one lane: from the identity, add the
-// lane's ``rows`` positions lane * rows + r of the batch row that starts
-// at ``at``, in order; a position at or past n is the identity padding.
-template <class C>
-__device__ __forceinline__ Pt<C> lane_row_sum(const PointPtrs& p,
-                                              size_t stride, size_t at,
-                                              size_t n, size_t lane,
-                                              size_t rows) {
+// The row loop of msm._scan_sum for one lane, on the two threads of a
+// pair (h = 0, 1; X as pt_add_pair): from the identity, add the lane's
+// ``rows`` positions lane * rows + r of the batch row that starts at
+// ``at``, in order; a position at or past n is the identity padding.
+// Both threads return the sum.
+template <class C, class X>
+__device__ __forceinline__ Pt<C> lane_row_sum_pair(const PointPtrs& p,
+                                                   size_t stride, size_t at,
+                                                   size_t n, size_t lane,
+                                                   size_t rows, bool h) {
   Pt<C> acc = pt_identity<C>();
 #pragma unroll 1
   for (size_t r = 0; r < rows; r++) {
     const size_t pos = lane * rows + r;
-    acc = pt_add(acc, pos < n ? load_point<C>(p, stride, at + pos)
-                              : pt_identity<C>());
+    const bool in = pos < n;
+    Pt<C> q = load_point<C>(p, stride, at + (in ? pos : 0));
+    if (!in) q = pt_identity<C>();
+    acc = pt_add_pair<C, X>(acc, q, h);
   }
   return acc;
 }

@@ -784,7 +784,11 @@ def double_points(group_name: str, p, times: int = 1,
                   every_step: bool = False):
     """Batched complete projective doubling chain: [2^times]P in one launch.
     With ``every_step`` it returns every intermediate [2^j]P, j = 1 ..
-    times, on a new trailing axis of each coordinate."""
+    times, on a new trailing axis of each coordinate.  One double (times =
+    1) runs one thread per point; a chain (times >= 2), bound by one
+    point's dependent latency, runs one warp per point with each field
+    element spread over eight lanes and a double's products on the warp's
+    four groups of lanes (csrc/lanes.cuh)."""
     from octopuszk_tpu_torch.curves.group_ops import rebuild_coords
     if times < 1:
         raise ValueError(f"times must be at least 1, got {times}")
@@ -956,8 +960,9 @@ def lane_row_sums_plain(group_name: str, p, width: int):
 
 def lane_row_sums(group_name: str, p, width: int):
     """The row loop of a two-level sum in one launch: points [8, *batch, n]
-    -> lane totals [8, *batch, width] (1 <= width <= n), one thread per
-    (batch row, lane) adding its rows in order from the identity."""
+    -> lane totals [8, *batch, width] (1 <= width <= n), each (batch row,
+    lane) adding its rows in order from the identity on two threads that
+    split every add's products (csrc/rcb.cuh pt_add_pair)."""
     from octopuszk_tpu_torch.curves.group_ops import rebuild_coords
     cd, (comps,) = _point_operands(group_name, p)
     batch, n = _batch_rows(comps, "points")

@@ -49,6 +49,9 @@ HARNESS = r"""
 #define __device__
 #define __forceinline__ inline
 #define __noinline__
+#include <condition_variable>
+#include <mutex>
+#include <thread>
 #include <vector>
 #include "lanes.cuh"
 #include "ntt.cuh"
@@ -291,12 +294,75 @@ extern "C" void batch_inv_op(int field, const uint32_t* a, uint32_t* out,
   });
 }
 
+template <class M>
+static bool coord_equal(const Fp<M>& a, const Fp<M>& b) {
+  for (int k = 0; k < 8; k++)
+    if (a.v[k] != b.v[k]) return false;
+  return true;
+}
+template <class M>
+static bool coord_equal(const Fp2<M>& a, const Fp2<M>& b) {
+  return coord_equal(a.c0, b.c0) && coord_equal(a.c1, b.c1);
+}
+// both threads of a pair hold the sum
+template <class C>
+static bool pt_equal(const Pt<C>& a, const Pt<C>& b) {
+  return coord_equal(a.x, b.x) && coord_equal(a.y, b.y) &&
+         coord_equal(a.z, b.z);
+}
+
 static PointPtrs ptrs(uint32_t* const* a, int group) {
   PointPtrs p;
   for (int k = 0; k < 6; k++)
     p.c[k] = k < 3 * coord_dim(group) ? a[k] : nullptr;
   return p;
 }
+
+// The two threads of a pair (rcb.cuh pt_add_pair) as two host threads
+// that meet at every exchange: each writes its value, waits for the other,
+// reads the other's and waits again before the slots are reused.
+struct HostPair {
+  static thread_local int me;
+  static uint32_t slot[2][8];
+  static std::mutex mu;
+  static std::condition_variable cv;
+  static int arrived;
+  static unsigned long phase;
+  static void meet() {
+    std::unique_lock<std::mutex> lk(mu);
+    const unsigned long ph = phase;
+    if (++arrived == 2) {
+      arrived = 0;
+      phase++;
+      cv.notify_all();
+    } else {
+      cv.wait(lk, [&] { return phase != ph; });
+    }
+  }
+  template <int W>
+  static void swap_words(const uint32_t* mine, uint32_t* theirs) {
+    for (int k = 0; k < W; k++) slot[me][k] = mine[k];
+    meet();
+    for (int k = 0; k < W; k++) theirs[k] = slot[1 - me][k];
+    meet();
+  }
+  template <class M>
+  static Fp<M> other(const Fp<M>& a) {
+    Fp<M> r;
+    swap_words<8>(a.v, r.v);
+    return r;
+  }
+  template <class M>
+  static Fp2<M> other(const Fp2<M>& a) {
+    return {other(a.c0), other(a.c1)};
+  }
+};
+thread_local int HostPair::me = 0;
+uint32_t HostPair::slot[2][8];
+std::mutex HostPair::mu;
+std::condition_variable HostPair::cv;
+int HostPair::arrived = 0;
+unsigned long HostPair::phase = 0;
 
 // one thread: every item of a level in order, no barrier needed; one block
 // of one thread
@@ -312,9 +378,12 @@ struct HostSched {
 
 // op: 0 window table (a = base, b = powers, n = npow, x = w, y = outerc,
 // batch = the rounds run per window before the grid's), 1 lane row sums
-// (a = points [batch, n], x = width), 2 tree (a = points, b = scratch), 3
+// (a = points [batch, n], x = width; the two threads of a pair as two host
+// threads; a lane whose halves differ is stored as zeros), 2 tree (a =
+// points, b = scratch), 3
 // prefix (a = points, b = scratch), 4 combine (a = window results [batch,
-// n], x = c; one emulated warp per row)
+// n], x = c; one emulated warp per row), 5 doubling chain (a = points [n],
+// x = times, y = every_step; one emulated warp per point)
 template <class C>
 static void chain(int op, int group, uint32_t* const* a, uint32_t* const* b,
                   uint32_t* const* out, long batch, long n, int x, int y) {
@@ -325,19 +394,33 @@ static void chain(int op, int group, uint32_t* const* a, uint32_t* const* b,
                            sched);
   } else if (op == 1) {
     const size_t rows = (n + x - 1) / x;
-    for (long i = 0; i < batch * x; i++)
-      store_point(lane_row_sum<C>(pa, batch * n, (i / x) * n, n, i % x, rows),
-                  po, batch * x, i);
+    for (long i = 0; i < batch * x; i++) {
+      Pt<C> acc[2];
+      auto half = [&](int h) {
+        HostPair::me = h;
+        acc[h] = lane_row_sum_pair<C, HostPair>(pa, batch * n, (i / x) * n,
+                                                n, i % x, rows, h != 0);
+      };
+      std::thread other(half, 1);
+      half(0);
+      other.join();
+      store_point(acc[0], po, batch * x, i);
+      if (!pt_equal(acc[0], acc[1])) store_point(Pt<C>{}, po, batch * x, i);
+    }
   } else if (op == 2) {
     tree_sum_rows<C>(pa, ptrs(b, group), po, batch, n, sched);
   } else if (op == 3) {
     prefix_sum_rows<C>(pa, ptrs(b, group), po, batch, n, sched);
-  } else {
+  } else if (op == 4) {
     typedef typename lanes::Spread<C, HostLanes>::type S;
     for (long i = 0; i < batch; i++)
       lanes::store_point(
           lanes::combine_windows<S>(pa, batch * n, i * n, (int)n, x), po,
           batch, i);
+  } else {
+    typedef typename lanes::Spread<C, HostLanes>::type S;
+    for (long i = 0; i < n; i++)
+      lanes::double_chain<S>(pa, po, n, i, x, y != 0);
   }
 }
 
@@ -401,7 +484,7 @@ def host_lib(tmp_path_factory):
     (d / "constants.cuh").write_text(kernels.constants_header())
     (d / "harness.cpp").write_text(HARNESS)
     so = d / "harness.so"
-    subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC",
+    subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-pthread",
                     "-I", str(kernels.CSRC), "-I", str(d),
                     str(d / "harness.cpp"), "-o", str(so)],
                    check=True, capture_output=True, text=True)
@@ -603,6 +686,45 @@ def test_point_chains(host_lib, gname):
     got = _chain(host_lib, 4, gname, wins, None, (8, 2), 2, 4, 5)
     want = kernels.combine_windows_plain(gname, wins, 5)
     assert all(torch.equal(x, y) for x, y in zip(got, _flat(want)))
+
+
+@pytest.mark.parametrize("kind", ["double_chain", "row_sums"])
+@pytest.mark.parametrize("gname", sorted(GROUP_IDS))
+def test_warp_chains(host_lib, gname, kind):
+    """Kernel (e)'s doubling chain on one emulated warp per point (times =
+    1, 4 and the Abel sum's 17, every step kept and not; three points, the
+    identity among them) and the row loop of ``lane_row_sums`` (two batch
+    rows of n = 11 in 4 lanes of 3 rows, so the last lane adds the
+    identity; an identity point, and a point followed by its inverse so a
+    lane's sum passes through the identity), against the plain versions."""
+    from octopuszk_tpu_torch.curves import group_ops
+    g = _group(gname)
+    rng = random.Random(6)
+    if kind == "double_chain":
+        host = [g.host.mul(g.generator_affine, rng.randrange(1, 1 << 64)),
+                None,
+                g.host.mul(g.generator_affine, rng.randrange(1, 1 << 64))]
+        pts = g.points_to_device(host, "cpu")
+        for times in (1, 4, 17):
+            steps = kernels.double_points_plain(gname, pts, times, True)
+            last = group_ops._map_coords(steps, lambda c: c[..., -1])
+            for every, want in ((True, steps), (False, last)):
+                got = _chain(host_lib, 5, gname, pts, None,
+                             (8, 3, times) if every else (8, 3), 1, 3,
+                             times, int(every))
+                assert all(torch.equal(x, y)
+                           for x, y in zip(got, _flat(want))), (times, every)
+    else:
+        host = [g.host.mul(g.generator_affine, rng.randrange(1, 1 << 64))
+                for _ in range(22)]
+        host[4] = None
+        host[7] = g.host.neg(host[6])
+        rows = group_ops._map_coords(g.points_to_device(host, "cpu"),
+                                     lambda c: c.reshape(8, 2, 11)
+                                     .contiguous())
+        got = _chain(host_lib, 1, gname, rows, None, (8, 2, 4), 2, 11, 4)
+        want = kernels.lane_row_sums_plain(gname, rows, 4)
+        assert all(torch.equal(x, y) for x, y in zip(got, _flat(want)))
 
 
 @pytest.mark.parametrize("log_l", [6, 5])
