@@ -48,8 +48,9 @@ library of their own (``kernels.TEST_FIELDS``: the field kernels only),
 their own records at BN254a's field shapes and a path (``test fields``:
 at 2^20 elements each, ntt -> intt and coset_ntt -> coset_intt round
 trips, the NTTs at three points against python ints, H = A B - C through
-``mul_sub``, ``batch_inv_rows`` and ``inv`` times their input equal to
-one, ``pow_const``, a sample of 4,096 of each result against python ints;
+``mul_sub``, ``batch_inv_rows`` and ``fp.inv`` (kernel ``inv``) times
+their input equal to one, ``pow_const``, a sample of 4,096 of each result
+against python ints;
 every field kernel must launch with the test fields' operands).  The
 ``mxu`` phase runs the port's tensor-core Montgomery experiment
 (``scripts/mxu_experiment.py``: kernel b against ``ops/mxu_mont.py``,
@@ -100,12 +101,13 @@ line holds ptxas's registers and spills for every kernel and unit.
 ``double_points`` has one record per doubling chain of the main path (the
 Abel sum's, the window table's; the window combine's is now inside
 ``combine_windows``), timed per chain: one launch each.  The records of
-chains (``double_points``, ``lane_row_sums``, ``combine_windows``) carry
-``critical_path_rounds`` beside the operations bound: the dependent rounds
-of field products on one chain's path (one product a round on a thread,
-up to four on a warp).  The
-chains of ``mont_mul`` and ``add_points`` that run as one launch each
-(``mont_pow``, ``batch_inv_rows``, ``window_table``, ``lane_row_sums``,
+chains (``double_points``, ``lane_row_sums``, ``combine_windows``,
+``mont_pow``) carry ``critical_path_rounds`` beside the operations bound:
+the dependent rounds of field products on one chain's path (one product a
+round on a thread, up to four on a warp); ``inv`` the divsteps, matrix
+updates and products of its slowest element.  The chains of
+``mont_mul`` and ``add_points`` that run as one launch each (``mont_pow``,
+``inv``, ``batch_inv_rows``, ``window_table``, ``lane_row_sums``,
 ``tree_sum``, ``prefix_sum``, ``combine_windows``) have records at the
 main path's shapes (``combine_windows`` also at four accumulators, one
 warp each), and so has ``ntt_block``, which runs every stage of a
@@ -165,6 +167,7 @@ REPLACES = {
     "row_gather": "scripts/gather_experiment.py:30",
     # the chains of (b) and (d) launches that run as one launch each
     "mont_pow": "octopuszk_tpu/ops/pallas_ops.py:451",
+    "inv": "octopuszk_tpu/ops/pallas_ops.py:451",
     "batch_inv_rows": "octopuszk_tpu/ops/pallas_ops.py:451",
     "window_table": "octopuszk_tpu/ops/pallas_ops.py:181",
     "combine_windows": "octopuszk_tpu/ops/pallas_ops.py:181",
@@ -185,6 +188,7 @@ SOURCE = {
     "scan_accumulate": "octopuszk_tpu_torch/csrc/scan_kernels.cu",
     "row_gather": "octopuszk_tpu_torch/csrc/gather_kernels.cu",
     "mont_pow": "octopuszk_tpu_torch/csrc/field_kernels.cu",
+    "inv": "octopuszk_tpu_torch/csrc/field_kernels.cu",
     "batch_inv_rows": "octopuszk_tpu_torch/csrc/field_kernels.cu",
     "window_table": "octopuszk_tpu_torch/csrc/table_kernels.cu",
     "combine_windows": "octopuszk_tpu_torch/csrc/table_kernels.cu",
@@ -196,11 +200,14 @@ SOURCE = {
 # the kernels each path is built on: each must launch at least once there
 _BUCKET_KERNELS = {"add_points", "prefix_sum", "lane_row_sums", "tree_sum",
                    "combine_windows"}
+# inv: the proof points' affine conversion
 _PROVE_KERNELS = {"ntt_block", "mont_mul", "mul_sub", "double_points",
-                  "mont_pow"} | _BUCKET_KERNELS
+                  "inv"} | _BUCKET_KERNELS
 # butterfly: the reference's per-stage kernel, on no path since ntt_block
 _GROTH16_KERNELS = set(REPLACES) - {"scan_accumulate", "row_gather",
                                     "butterfly"}
+# the distributed setup takes t^n on the host: no mont_pow
+_DIST_GROTH16_KERNELS = _GROTH16_KERNELS - {"mont_pow"}
 _FIXED_KERNELS = {"double_points", "window_table", "mont_mul",
                   "batch_inv_rows", "scan_accumulate_mixed_total"}
 REQUIRED = {
@@ -211,12 +218,12 @@ REQUIRED = {
     # BN254b: construct, setup, a packed and an unpacked prove
     "bn254b": _GROTH16_KERNELS | {"scan_accumulate"},
     # four shards: construct, shard, setup, prove
-    "dist": _GROTH16_KERNELS,
+    "dist": _DIST_GROTH16_KERNELS,
     # the gathered CRS proved serially, the sharded serial CRS proved
     # distributed
     "dist crs": _PROVE_KERNELS | {"scan_accumulate_mixed"},
     # the test fields' NTTs, products, chains and H = A B - C
-    "test fields": {"ntt_block", "mont_mul", "mul_sub", "mont_pow",
+    "test fields": {"ntt_block", "mont_mul", "mul_sub", "mont_pow", "inv",
                     "batch_inv_rows"},
     # the tensor-core experiment's baseline, kernel (b)
     "mxu": {"mont_mul"},
@@ -226,7 +233,7 @@ REQUIRED = {
 # PROFILER_CUTS.
 PROFILER_APPS = [
     (["fft"], {"ntt_block"}),
-    (["lagrange"], {"mont_mul", "mont_pow"}),
+    (["lagrange"], {"mont_mul", "mont_pow", "batch_inv_rows"}),
     (["fmsm-g1"], _FIXED_KERNELS),
     (["fmsm-g2"], _FIXED_KERNELS),
     (["vmsm-g1"], _FIXED_KERNELS | _BUCKET_KERNELS | {"scan_accumulate_mixed"}),
@@ -248,7 +255,7 @@ DIST_PROFILER_APPS = [
     ([str(DIST_SHARDS), "vmsm-g1"],
      _FIXED_KERNELS | _BUCKET_KERNELS | {"scan_accumulate"}),
     ([str(DIST_SHARDS), "witness"], {"ntt_block", "mont_mul", "mul_sub"}),
-    ([str(DIST_SHARDS), "zksnark-large"], _GROTH16_KERNELS),
+    ([str(DIST_SHARDS), "zksnark-large"], _DIST_GROTH16_KERNELS),
     ([str(DIST_SHARDS), "bace"], {"ntt_block", "mont_mul"}),
 ]
 # log2 steps below the main path's size, for the apps whose host work
@@ -263,6 +270,12 @@ PROFILER_CURVES = {"zksnark-large": "bn254b"}
 MONT_MULS = {("add", 1): 12, ("add", 2): 12 * 3 + 2 * 3,
              ("double", 1): 8, ("double", 2): 8 * 3 + 3,
              ("mixed", 1): 11, ("mixed", 2): 11 * 3 + 2 * 3}
+# operations of field.cuh's safegcd inversion: a divstep is 23 32-bit
+# instructions in the compiled code (sm_90a SASS of inv_kernel); a batch
+# of 30 divsteps' matrix updates, 90 32 x 32 -> 64-bit multiply-adds,
+# counted as two 32-bit multiply-adds each (as a product's mad.lo / mad.hi
+# pairs are)
+DIVSTEP_OPS, BATCH_MADS = 23, 2 * 90
 # dependent rounds of products per curve operation on one warp (lanes.cuh:
 # a formula's independent products four at a time on the warp's 8-lane
 # groups, an Fp2 product three of them; on G1 the products by b3 are adds)
@@ -373,6 +386,43 @@ def mads_per_product(spec) -> int:
     return 2 * 2 * w * w
 
 
+def fermat_products(spec) -> int:
+    """Squares and products of the chain a^(p-2)."""
+    pm2 = spec.p_minus_2
+    return (pm2.bit_length() - 1) + (bin(pm2).count("1") - 1)
+
+
+def divsteps_needed(x: int, p: int) -> int:
+    """The divsteps of field.cuh's safegcd (zeta = -1 at the start, f = p,
+    g = x) after which g is zero."""
+    zeta, f, g, n = -1, p, x, 0
+    while g:
+        if g & 1:
+            if zeta < 0:
+                zeta, f, g = -zeta - 2, g, (g - f) >> 1
+            else:
+                zeta, g = zeta - 1, (g + f) >> 1
+        else:
+            zeta, g = zeta - 1, g >> 1
+        n += 1
+    return n
+
+
+def safegcd_work(spec, a):
+    """What the inversions of the elements of ``a`` need, from their
+    values: (operations: each element's divsteps until g is zero, the
+    matrix updates of its batches of 30 and the product by R^3; the
+    critical path of the slowest element: its divsteps in whole batches,
+    its matrix updates, one product)."""
+    steps = [divsteps_needed(x, spec.p)
+             for x in bigint.words_to_ints(a.cpu().numpy())]
+    batches = [-(-s // 30) for s in steps]
+    ops = sum(s * DIVSTEP_OPS + b * BATCH_MADS + mads_per_product(spec)
+              for s, b in zip(steps, batches))
+    return ops, {"divsteps": 30 * max(batches),
+                 "matrix_updates": max(batches), "products": 1}
+
+
 def bound(bytes_moved: float, mads: float, int32_rate: float):
     by_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     by_ops = mads / int32_rate * 1e3
@@ -393,8 +443,9 @@ def recorder(dev, reps: int, int32_rate: float, curve: str, records: list):
         the kernel's output (``plain_ms`` is then the part's time).
         ``critical``: for a chain, its critical path in dependent rounds of
         field products (``critical_path_rounds``; a round is one product on
-        one thread, up to four on a warp, lanes.cuh), beside the
-        operations bound."""
+        one thread, up to four on a warp, lanes.cuh; for ``inv`` a dict of
+        divsteps, matrix updates and products), beside the operations
+        bound."""
         ms, got = time_ms(kernel_fn, dev, reps)
         if part is not None:
             got = part[1](got)
@@ -478,11 +529,12 @@ def check_test_field_kernels(dev, log2: int, int32_rate: float, reps: int):
     kernels built for fields of no curve) at BN254a's main-path shapes:
     ``butterfly`` [8, 2^(log2-1)] (off the path), ``ntt_block``'s coset
     passes at 2^log2 and its 2^12 transform, ``mont_mul`` and ``mul_sub``
-    [8, 2^log2], ``mont_pow`` of p - 2 [8, 1] and [8, 4096],
+    [8, 2^log2], ``mont_pow`` of p - 2 and ``inv`` [8, 1] and [8, 4096],
     ``batch_inv_rows`` [8, 2^log2] with 5 % zeros.  A bound counts the
     products of the field's own width (``mads_per_product``: SMALL's two
     words, though the kernels run the eight-word CIOS for every field); a
-    Fermat chain counts the squares and products of this field's p - 2."""
+    Fermat chain counts the squares and products of this field's p - 2,
+    ``inv`` the divsteps and updates its inputs need (``safegcd_work``)."""
     gen = torch.Generator(device=dev).manual_seed(21)
     records = []
     record = recorder(dev, reps, int32_rate, kernels.TEST_FIELDS, records)
@@ -511,14 +563,7 @@ def check_test_field_kernels(dev, log2: int, int32_rate: float, reps: int):
                lambda: kernels.mul_sub(spec, a, b, c),
                lambda: kernels.mul_sub_plain(spec, a, b, c),
                4 * ELEM_BYTES * n, mads * n)
-        pm2 = spec.p_minus_2
-        fermat = (pm2.bit_length() - 1) + (bin(pm2).count("1") - 1)
-        for cnt in (1, 4096):
-            a = rand(gen, (cnt,), dev)
-            record("mont_pow", f"{tag}, p - 2", [8, cnt],
-                   lambda: kernels.mont_pow(spec, a, pm2),
-                   lambda: kernels.mont_pow_plain(spec, a, pm2),
-                   2 * ELEM_BYTES * cnt, mads * fermat * cnt)
+        inversion_records(record, gen, spec, tag, "p - 2", rand, dev)
         a = rand(gen, (n,), dev)
         a[:, torch.rand(n, device=dev, generator=gen) < 0.05] = 0
         nonzero = int((a != 0).any(0).sum())
@@ -526,10 +571,31 @@ def check_test_field_kernels(dev, log2: int, int32_rate: float, reps: int):
                [8, n],
                lambda: kernels.batch_inv_rows(spec, a),
                lambda: kernels.batch_inv_rows_plain(spec, a),
-               2 * ELEM_BYTES * n, mads * (3 * nonzero + fermat))
+               2 * ELEM_BYTES * n, mads * 3 * nonzero)
         del a, b, c, w
     drop_test_field_tables()
     return records
+
+
+def inversion_records(record, gen, spec, tag: str, pm2_name: str, rand, dev):
+    """``mont_pow`` of p - 2 (the Fermat chain, a general exponent for the
+    kernel) and ``inv`` (safegcd) on the same inputs, [8, 1] (a proof
+    point's affine conversion) and [8, 4096]; the plain version of both is
+    the Fermat chain.  Bounds: the chain's products; the divsteps and
+    updates these inputs need (``safegcd_work``)."""
+    pm2, mads = spec.p_minus_2, mads_per_product(spec)
+    fermat = fermat_products(spec)
+    for cnt in (1, 4096):
+        a = rand(gen, (cnt,), dev)
+        record("mont_pow", f"{tag}, {pm2_name}", [8, cnt],
+               lambda: kernels.mont_pow(spec, a, pm2),
+               lambda: kernels.mont_pow_plain(spec, a, pm2),
+               2 * ELEM_BYTES * cnt, mads * fermat * cnt, critical=fermat)
+        ops, crit = safegcd_work(spec, a)
+        record("inv", f"{tag}, safegcd", [8, cnt],
+               lambda: kernels.inv(spec, a),
+               lambda: kernels.inv_plain(spec, a),
+               2 * ELEM_BYTES * cnt, ops, critical=crit)
 
 
 def drop_test_field_tables():
@@ -585,19 +651,20 @@ def check_kernels(dev, log2: int, int32_rate: float, reps: int,
                lambda: kernels.mont_mul(spec, a, b),
                lambda: kernels.mont_mul_plain(spec, a, b),
                3 * ELEM_BYTES * cnt, MADS_PER_MONT_MUL * cnt)
-    # (b)'s chains: the Fermat inversion (q - 2) of one element (an MSM
-    # result's affine conversion) and of 4,096; the batch inversion of a
-    # packed query (2^(log2+1) points, some zero) and of a fixed-base table
-    # (17 windows of 2^15 at 2^20).  A batch inversion needs 3 products per
-    # non-zero element and one Fermat chain, however it groups its lanes.
-    pm2 = fq.p_minus_2
-    fermat = (pm2.bit_length() - 1) + (bin(pm2).count("1") - 1)
-    for cnt in (1, 4096):
-        a = rand_field(gen, (cnt,), dev)
-        record("mont_pow", "Fq, q - 2", [8, cnt],
-               lambda: kernels.mont_pow(fq, a, pm2),
-               lambda: kernels.mont_pow_plain(fq, a, pm2),
-               2 * ELEM_BYTES * cnt, MADS_PER_MONT_MUL * fermat * cnt)
+    # (b)'s chains: the inversion of one element (an MSM result's affine
+    # conversion) and of 4,096, by ``inv`` and by the Fermat chain of
+    # ``mont_pow``; ``mont_pow`` at its main-path use, t^n in
+    # lagrange_coeffs; the batch inversion of a packed query (2^(log2+1)
+    # points, some zero) and of a fixed-base table (17 windows of 2^15 at
+    # 2^20).  A batch inversion needs 3 products per non-zero element and
+    # one inversion (about 2e4 operations, below 1e-5 of the rest: left
+    # out, which only lowers the bound), however it groups its lanes.
+    inversion_records(record, gen, fq, "Fq", "q - 2", rand_field, dev)
+    t1 = rand_field(gen, (1,), dev)
+    record("mont_pow", f"Fr, t^n, n = 2^{log2} (lagrange_coeffs)", [8, 1],
+           lambda: kernels.mont_pow(fr, t1, n),
+           lambda: kernels.mont_pow_plain(fr, t1, n),
+           2 * ELEM_BYTES, MADS_PER_MONT_MUL * log2, critical=log2)
     w_table = msm._choose_w_packed(2 * n)
     table_entries = -(-msm.SCALAR_BITS // w_table) << w_table
     for cnt in (2 * n, table_entries):
@@ -608,8 +675,7 @@ def check_kernels(dev, log2: int, int32_rate: float, reps: int,
                [8, cnt],
                lambda: kernels.batch_inv_rows(fq, a),
                lambda: kernels.batch_inv_rows_plain(fq, a),
-               2 * ELEM_BYTES * cnt,
-               MADS_PER_MONT_MUL * (3 * nonzero + fermat))
+               2 * ELEM_BYTES * cnt, MADS_PER_MONT_MUL * 3 * nonzero)
     # (c) mul_sub
     for spec, tag in ((fr, "Fr"), (fq, "Fq")):
         a, b, c = (rand_field(gen, (n,), dev) for _ in range(3))
@@ -1404,12 +1470,18 @@ def run_profiler(dev, log2: int, apps):
     return counts
 
 
+# the device kernels of the inversions, by name in the profiler's trace
+INVERSION_KERNELS = ("inv_kernel", "mont_pow_kernel", "batch_inv_rows_kernel")
+
+
 def profile_prove(dev, crs, primary, aux):
     """Two more proves: one timed on the host clock, with its stages and
     its launches per wrapper, one under torch.profiler for the device's
     busy time (the sum over device kernels; tracing slows the host, so the
-    idle share is reckoned against the untraced wall time) and the kernels
-    that take most of it."""
+    idle share is reckoned against the untraced wall time), the kernels
+    that take most of it and the inversions' kernels (device time of a
+    call, which the records of one element cannot show where the
+    wrapper's host time is longer)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize(dev)
@@ -1444,7 +1516,10 @@ def profile_prove(dev, crs, primary, aux):
         "kernel_launches": sum(e.count for e in events),
         "top_by_device_time": [
             {"name": e.key[:80], "calls": e.count, "ms": self_us(e) / 1e3}
-            for e in top]}})
+            for e in top],
+        "inversion_kernels": [
+            {"name": e.key[:80], "calls": e.count, "ms": self_us(e) / 1e3}
+            for e in events if any(k in e.key for k in INVERSION_KERNELS)]}})
 
 
 # ---------------------------------------------------------------------------

@@ -153,17 +153,28 @@ __host__ __device__ __forceinline__ uint32_t madc_hi(uint32_t a, uint32_t b,
 }  // namespace cc
 
 // A modulus: its words, one in Montgomery form (R mod p) and -p^-1 mod
-// 2^32.  A curve's Fq modulus carries the curve's traits as well: kNr, the
-// Fp2 non-residue (u^2 = kNr, fp2.cuh); kB3, 3 b on G1; b3_c0 / b3_c1, the
-// words of 3 b on the G2 twist (rcb.cuh).
+// 2^32; for the inversion (inv_safegcd below) p in nine signed 30-bit
+// limbs, p^-1 mod 2^30 and the words of R^3 mod p.  A curve's Fq modulus
+// carries the curve's traits as well: kNr, the Fp2 non-residue (u^2 =
+// kNr, fp2.cuh); kB3, 3 b on G1; b3_c0 / b3_c1, the words of 3 b on the G2
+// twist (rcb.cuh).
 #define OZ_MODULUS(TAG)                                     \
   static constexpr uint32_t N0INV = TAG##_N0INV;            \
+  static constexpr uint32_t PINV30 = TAG##_PINV30;          \
   __device__ __forceinline__ static uint32_t p(int i) {     \
     constexpr uint32_t v[8] = TAG##_P_WORDS;                \
     return v[i];                                            \
   }                                                         \
   __device__ __forceinline__ static uint32_t one(int i) {   \
     constexpr uint32_t v[8] = TAG##_ONE_WORDS;              \
+    return v[i];                                            \
+  }                                                         \
+  __device__ __forceinline__ static int32_t p30(int i) {    \
+    constexpr int32_t v[9] = TAG##_P30_LIMBS;               \
+    return v[i];                                            \
+  }                                                         \
+  __device__ __forceinline__ static uint32_t r3(int i) {    \
+    constexpr uint32_t v[8] = TAG##_R3_WORDS;               \
     return v[i];                                            \
   }
 #define OZ_CURVE_TRAITS(TAG)                                \
@@ -456,41 +467,348 @@ __device__ __forceinline__ Fp<M> pow_exp(const Fp<M>& a, const Exponent& e) {
   return acc;
 }
 
-// One lane of the two-level Montgomery batch inversion of a word-major
-// [8, n] batch (fields/fp.py batch_inv_rows): lane l owns the positions
-// l, l + lanes, l + 2 lanes, ... below n.  The forward sweep writes each
-// position's exclusive prefix product into ``out`` (a zero counts as one),
-// the lane total is raised to ``pm2`` = p - 2 (Fermat; the total is
-// never zero), and the backward sweep overwrites each prefix with
-// prefix * (inverse of the running product up to and including it), the
-// position's inverse.  A zero maps to zero.  The inverse of an element is
-// unique and canonical, so how positions are grouped into lanes does not
-// change a word of the result.
+// Inversion: Bernstein-Yang "safegcd" (TCHES 2019, eprint 2019/266), in
+// the form of libsecp256k1's modinv32 (constant-time divsteps with
+// zeta = -(delta + 1/2), signed 30-bit limbs).
+//
+// Why it replaces a^(p-2) (pow_exp) here: Fermat is 253 squares and 109
+// products for BN254's q - 2, each waiting on the one before; a product is
+// about 280 integer instructions and 0.47 us of one thread's latency on
+// this card, so one inversion takes 0.17 ms with the rest of the card
+// idle, and every lane of batch_inv_rows ran one.  safegcd instead runs
+// divsteps on the low 32 bits of f and g (one step: 23 instructions in the
+// compiled code, 7 of them in turn on g's path), 30 at a time, each batch
+// giving a 2x2 matrix with int32 entries that is then applied to f, g
+// (plain integers) and to d, e (mod p: a multiple of p makes the low 30
+// bits zero, so the division by 2^30 is exact) with 32 x 32 -> 64-bit
+// multiply-adds, the card's native IMAD.WIDE.  20 batches of 30 (600
+// divsteps) are enough for any modulus below 2^256 (libsecp256k1's
+// safegcd_implementation.md: 590 for its hddivsteps at 256 bits), so no
+// field needs a path of its own.  About 14,000 ALU instructions and 1,800
+// 64-bit multiply-adds an inversion, some 60 products' worth against
+// Fermat's 362, and a critical path of 600 divsteps of 7 dependent
+// instructions against 362 products of about 100.  The divsteps select
+// without branches, so all 32 lanes of a warp run the same instructions;
+// a warp leaves the loop once g is zero on every lane (V::all), which
+// changes no word: with g = 0 a batch leaves f = +-1 and the value of d
+// mod p as they are.
+//
+// Input and output are Montgomery words: the algorithm inverts the
+// integer x = a R, giving a^-1 R^-1, and one product by R^3 mod p makes
+// it a^-1 R.  Zero gives zero, as Fermat does.
+namespace sgcd {
+
+constexpr int32_t M30 = 0x3FFFFFFF;
+
+// value = sum v[i] 2^(30 i); v[0..7] in [0, 2^30) after an update
+struct S30 {
+  int32_t v[9];
+};
+
+// the 2x2 matrix of 30 divsteps, (u v; q r), times 2^30
+struct Trans {
+  int32_t u, v, q, r;
+};
+
+// 30 divsteps on the low words of f and g; returns the new zeta.  The
+// steps of libsecp256k1's secp256k1_modinv32_divsteps_30 (u, v, q, r as
+// unsigned words; they stay in [-2^30, 2^30]), each choice a select
+// between values computed before the choice is known: where g is odd and
+// zeta < 0 (swap) (f, g) = (g, g - f), where g is odd otherwise g = g + f,
+// then g / 2; (u, v) and (q, r) alike, then u, v times 2.  A select is one
+// instruction on a predicate; this form runs 7 % faster on the card than
+// libsecp256k1's masks (scripts/inv_designs.py).
+__device__ __forceinline__ int32_t divsteps_30(int32_t zeta, uint32_t f,
+                                               uint32_t g, Trans& t) {
+  uint32_t u = 1u, v = 0u, q = 0u, r = 1u;
+#pragma unroll
+  for (int i = 0; i < 30; i++) {
+    const bool odd = g & 1u;
+    const bool swap = odd && zeta < 0;
+    const uint32_t g_odd = swap ? g - f : g + f;
+    const uint32_t q_odd = swap ? q - u : q + u;
+    const uint32_t r_odd = swap ? r - v : r + v;
+    f = swap ? g : f;
+    u = swap ? q : u;
+    v = swap ? r : v;
+    g = odd ? g_odd : g;
+    q = odd ? q_odd : q;
+    r = odd ? r_odd : r;
+    zeta = swap ? -zeta - 2 : zeta - 1;
+    g >>= 1;
+    u <<= 1;
+    v <<= 1;
+  }
+  t = {(int32_t)u, (int32_t)v, (int32_t)q, (int32_t)r};
+  return zeta;
+}
+
+// (d, e) = (t [d, e] + p [md, me]) / 2^30, md and me chosen so that the
+// low 30 bits vanish; d and e stay in (-2p, p)
 template <class M>
-__device__ __forceinline__ void batch_inv_lane(const uint32_t* a,
-                                               uint32_t* out, size_t n,
-                                               size_t lanes, size_t l,
-                                               const Exponent& pm2) {
-  if (l >= n) return;
-  const size_t rows = (n - 1 - l) / lanes + 1;
+__device__ __forceinline__ void update_de(S30& d, S30& e, const Trans& t) {
+  const int32_t sd = d.v[8] >> 31, se = e.v[8] >> 31;
+  int32_t md = (t.u & sd) + (t.v & se);
+  int32_t me = (t.q & sd) + (t.r & se);
+  int64_t cd = (int64_t)t.u * d.v[0] + (int64_t)t.v * e.v[0];
+  int64_t ce = (int64_t)t.q * d.v[0] + (int64_t)t.r * e.v[0];
+  md -= (int32_t)((M::PINV30 * (uint32_t)cd + (uint32_t)md) & (uint32_t)M30);
+  me -= (int32_t)((M::PINV30 * (uint32_t)ce + (uint32_t)me) & (uint32_t)M30);
+  cd += (int64_t)M::p30(0) * md;
+  ce += (int64_t)M::p30(0) * me;
+  cd >>= 30;
+  ce >>= 30;
+#pragma unroll
+  for (int i = 1; i < 9; i++) {
+    cd += (int64_t)t.u * d.v[i] + (int64_t)t.v * e.v[i];
+    ce += (int64_t)t.q * d.v[i] + (int64_t)t.r * e.v[i];
+    cd += (int64_t)M::p30(i) * md;
+    ce += (int64_t)M::p30(i) * me;
+    d.v[i - 1] = (int32_t)cd & M30;
+    cd >>= 30;
+    e.v[i - 1] = (int32_t)ce & M30;
+    ce >>= 30;
+  }
+  d.v[8] = (int32_t)cd;
+  e.v[8] = (int32_t)ce;
+}
+
+// (f, g) = t [f, g] / 2^30, exact
+__device__ __forceinline__ void update_fg(S30& f, S30& g, const Trans& t) {
+  int64_t cf = (int64_t)t.u * f.v[0] + (int64_t)t.v * g.v[0];
+  int64_t cg = (int64_t)t.q * f.v[0] + (int64_t)t.r * g.v[0];
+  cf >>= 30;
+  cg >>= 30;
+#pragma unroll
+  for (int i = 1; i < 9; i++) {
+    cf += (int64_t)t.u * f.v[i] + (int64_t)t.v * g.v[i];
+    cg += (int64_t)t.q * f.v[i] + (int64_t)t.r * g.v[i];
+    f.v[i - 1] = (int32_t)cf & M30;
+    cf >>= 30;
+    g.v[i - 1] = (int32_t)cg & M30;
+    cg >>= 30;
+  }
+  f.v[8] = (int32_t)cf;
+  g.v[8] = (int32_t)cg;
+}
+
+// r = r + p where negative; negated where ``sign`` is; the top bits
+// carried up; p added again where still negative: [0, p) from (-2p, p)
+template <class M>
+__device__ __forceinline__ void add_p_if_negative(S30& r) {
+  const int32_t c = r.v[8] >> 31;
+#pragma unroll
+  for (int i = 0; i < 9; i++) r.v[i] += M::p30(i) & c;
+}
+__device__ __forceinline__ void carry_up(S30& r) {
+#pragma unroll
+  for (int i = 0; i < 8; i++) {
+    r.v[i + 1] += r.v[i] >> 30;
+    r.v[i] &= M30;
+  }
+}
+template <class M>
+__device__ __forceinline__ void normalize(S30& r, int32_t sign) {
+  add_p_if_negative<M>(r);
+  const int32_t neg = sign >> 31;
+#pragma unroll
+  for (int i = 0; i < 9; i++) r.v[i] = (r.v[i] ^ neg) - neg;
+  carry_up(r);
+  add_p_if_negative<M>(r);
+  carry_up(r);
+}
+
+// eight words (a value below 2^256) as limbs, and back (a value in [0, p))
+template <class M>
+__device__ __forceinline__ S30 from_words(const Fp<M>& a) {
+  S30 r;
+#pragma unroll
+  for (int j = 0; j < 9; j++) {
+    const int k = 30 * j / 32, s = 30 * j % 32;
+    const uint64_t w = a.v[k] | (k < 7 ? (uint64_t)a.v[k + 1] << 32 : 0);
+    r.v[j] = (int32_t)(w >> s) & M30;
+  }
+  return r;
+}
+template <class M>
+__device__ __forceinline__ Fp<M> to_words(const S30& d) {
+  Fp<M> r;
+#pragma unroll
+  for (int k = 0; k < 8; k++) {
+    const int j = 32 * k / 30, s = 32 * k % 30;
+    const uint64_t w = (uint64_t)(uint32_t)d.v[j] |
+                       (uint64_t)(uint32_t)d.v[j + 1] << 30;
+    r.v[k] = (uint32_t)(w >> s);
+  }
+  return r;
+}
+
+__device__ __forceinline__ bool is_zero(const S30& g) {
+  int32_t acc = 0;
+#pragma unroll
+  for (int i = 0; i < 9; i++) acc |= g.v[i];
+  return acc == 0;
+}
+
+}  // namespace sgcd
+
+// The vote that ends the divstep loop: the caller's own g alone (a thread
+// by itself: the host harness, one element in turn).  On the card the
+// kernels pass WarpVote, whose every lane must reach each call.
+struct OneThread {
+  static __device__ __forceinline__ bool all(bool p) { return p; }
+};
+#if defined(__CUDACC__)
+struct WarpVote {
+  static __device__ __forceinline__ bool all(bool p) {
+    return __all_sync(0xffffffffu, p);
+  }
+};
+
+// The threads of a block sharing a phase's items (first(), step()) and
+// its barrier (ntt.cuh's transform; the batch inversion's third level
+// takes the barrier alone).
+struct BlockSched {
+  __device__ unsigned first() const { return threadIdx.x; }
+  __device__ unsigned step() const { return blockDim.x; }
+  __device__ void barrier() { __syncthreads(); }
+};
+#endif
+
+// a^-1 in Montgomery form (zero for zero), for any modulus the headers
+// take: at most 20 batches of 30 divsteps, each batch's matrix applied to
+// (f, g) and to (d, e); then d = +-x^-1 made canonical and times R^3.
+template <class M, class V>
+__device__ __forceinline__ Fp<M> inv_safegcd(const Fp<M>& a) {
+  sgcd::S30 d = {}, e = {}, f, g = sgcd::from_words(a);
+  e.v[0] = 1;
+#pragma unroll
+  for (int i = 0; i < 9; i++) f.v[i] = M::p30(i);
+  int32_t zeta = -1;
+#pragma unroll 1
+  for (int b = 0; b < 20; b++) {
+    if (V::all(sgcd::is_zero(g))) break;
+    sgcd::Trans t;
+    zeta = sgcd::divsteps_30(zeta, (uint32_t)f.v[0], (uint32_t)g.v[0], t);
+    sgcd::update_de<M>(d, e, t);
+    sgcd::update_fg(f, g, t);
+  }
+  sgcd::normalize<M>(d, f.v[8]);   // f = +-1: its sign is d's
+  Fp<M> r3;
+#pragma unroll
+  for (int k = 0; k < 8; k++) r3.v[k] = M::r3(k);
+  return mul(sgcd::to_words<M>(d), r3);
+}
+
+// The batch inversion of a word-major [8, n] batch (fields/fp.py
+// batch_inv_rows), a Montgomery trick on three levels.  Lane l < lanes owns
+// the positions l, l + lanes, l + 2 lanes, ... below n
+// (batch_inv_rows_count of them; a lane past ``lanes`` owns none, so a
+// warp's loads of one row are contiguous).  Its forward sweep writes each
+// position's exclusive prefix product into ``out`` (a zero counts as one)
+// and returns the lane total; the block's T lane totals are multiplied in
+// shared memory (inclusive prefix and suffix products, Hillis-Steele);
+// one thread inverts the block's product (inv_safegcd); a lane's inverse
+// total is the product of its exclusive prefix, its exclusive suffix and
+// that inverse; its backward sweep overwrites each prefix with prefix *
+// (inverse of the running product up to and including it), the
+// position's inverse.  A zero maps to zero.  Each sweep loads the next
+// row's words before this row's product, so a load's latency hides behind
+// a product's.  The inverse of an element is unique and canonical, so how
+// positions are grouped into lanes and blocks does not change a word of
+// the result.
+__device__ __forceinline__ size_t batch_inv_rows_count(size_t n, size_t lanes,
+                                                       size_t l) {
+  return l < lanes ? (n - 1 - l) / lanes + 1 : 0;
+}
+
+template <class M>
+__device__ __forceinline__ Fp<M> batch_inv_forward(const uint32_t* a,
+                                                   uint32_t* out, size_t n,
+                                                   size_t lanes, size_t l,
+                                                   size_t rows) {
   Fp<M> carry = fp_one<M>();
+  Fp<M> x = rows ? fp_load<M>(a, n, l) : carry;
 #pragma unroll 1
   for (size_t r = 0; r < rows; r++) {
     const size_t pos = l + r * lanes;
+    const Fp<M> next = r + 1 < rows ? fp_load<M>(a, n, pos + lanes) : x;
     fp_store<M>(out, n, pos, carry);
-    const Fp<M> x = fp_load<M>(a, n, pos);
     if (!is_zero(x)) carry = mul(carry, x);
+    x = next;
   }
-  carry = pow_exp(carry, pm2);
+  return carry;
+}
+
+// ``inv``: the inverse of the lane's total
+template <class M>
+__device__ __forceinline__ void batch_inv_backward(const uint32_t* a,
+                                                   uint32_t* out, size_t n,
+                                                   size_t lanes, size_t l,
+                                                   size_t rows, Fp<M> inv) {
+  if (rows == 0) return;
+  size_t pos = l + (rows - 1) * lanes;
+  Fp<M> x = fp_load<M>(a, n, pos), pre = fp_load<M>(out, n, pos);
 #pragma unroll 1
-  for (size_t r = rows; r-- > 0;) {
-    const size_t pos = l + r * lanes;
-    const Fp<M> x = fp_load<M>(a, n, pos);
+  for (size_t r = rows; r-- > 0; pos -= lanes) {
+    const Fp<M> xn = r ? fp_load<M>(a, n, pos - lanes) : x;
+    const Fp<M> pn = r ? fp_load<M>(out, n, pos - lanes) : pre;
     if (is_zero(x)) {
       fp_store<M>(out, n, pos, fp_zero<M>());
-      continue;
+    } else {
+      fp_store<M>(out, n, pos, mul(inv, pre));
+      inv = mul(inv, x);
     }
-    fp_store<M>(out, n, pos, mul(carry, fp_load<M>(out, n, pos)));
-    carry = mul(carry, x);
+    x = xn;
+    pre = pn;
   }
+}
+
+// shared words of a block of T lanes: its prefix and suffix products,
+// word-major [8][T] each, and the inverse
+__host__ __device__ constexpr size_t batch_inv_smem_words(int T) {
+  return 2 * 8 * (size_t)T + 8;
+}
+
+// Lane block * T + t, run by thread t of a block of T threads, every one
+// of which calls this; ``sync.barrier()`` is the block's barrier (a host
+// harness runs the T threads as host threads).  ``smem``:
+// batch_inv_smem_words(T) words.  Each thread keeps its lane's prefix and
+// suffix products in registers between the levels; the block's first
+// thread alone inverts (no vote).
+template <class M, int T, class Sync>
+__device__ __forceinline__ void batch_inv_block(const uint32_t* a,
+                                                uint32_t* out, size_t n,
+                                                size_t lanes, size_t block,
+                                                unsigned t, uint32_t* smem,
+                                                Sync& sync) {
+  uint32_t* pre = smem;
+  uint32_t* suf = smem + 8 * T;
+  uint32_t* total_inv = smem + 16 * T;
+  const size_t l = block * T + t;
+  const size_t rows = batch_inv_rows_count(n, lanes, l);
+  const Fp<M> one = fp_one<M>();
+  Fp<M> p = batch_inv_forward<M>(a, out, n, lanes, l, rows), s = p;
+  fp_store<M>(pre, T, t, p);
+  fp_store<M>(suf, T, t, s);
+  sync.barrier();
+#pragma unroll 1
+  for (unsigned d = 1; d < (unsigned)T; d <<= 1) {
+    const Fp<M> pl = t >= d ? fp_load<M>(pre, T, t - d) : one;
+    const Fp<M> sr = t + d < (unsigned)T ? fp_load<M>(suf, T, t + d) : one;
+    sync.barrier();
+    if (t >= d) p = mul(pl, p);
+    if (t + d < (unsigned)T) s = mul(s, sr);
+    fp_store<M>(pre, T, t, p);
+    fp_store<M>(suf, T, t, s);
+    sync.barrier();
+  }
+  if (t == 0)
+    fp_store<M>(total_inv, 1, 0,
+                inv_safegcd<M, OneThread>(fp_load<M>(pre, T, T - 1)));
+  sync.barrier();
+  Fp<M> inv = fp_load<M>(total_inv, 1, 0);
+  if (t > 0) inv = mul(inv, fp_load<M>(pre, T, t - 1));
+  if (t + 1 < (unsigned)T) inv = mul(inv, fp_load<M>(suf, T, t + 1));
+  batch_inv_backward<M>(a, out, n, lanes, l, rows, inv);
 }

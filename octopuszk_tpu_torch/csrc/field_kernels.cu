@@ -10,25 +10,33 @@
 // word-major so that a warp reads 128 contiguous bytes per word, everything
 // between the loads and the stores in registers, one pass over memory.
 //
-// Two more kernels run (b)'s chains, which the main path ran as one
+// Three more kernels run (b)'s chains, which the main path ran as one
 // mont_mul launch per step:
-// * mont_pow: a^e for a host exponent (fields/fp.py pow_const, so fp.inv
-//   and the Fermat inversions of fp2.inv and the affine conversions), one
-//   thread per element running the square-and-multiply chain in
-//   registers: 362 dependent products for q - 2, which cost 362 launches
-//   and as many wrapper calls before.  Bound: one thread's dependent
-//   latency where the batch is small (one to fifteen elements on the main
-//   path), multiply throughput where it is large.
-// * batch_inv_rows: the two-level Montgomery batch inversion of
-//   fields/fp.py batch_inv_rows (before: 3 launches per row of 4,096
-//   lanes plus a Fermat chain, about 1,900 launches per setup), one
-//   thread per lane: forward sweep of exclusive prefix products written
-//   into the output, Fermat inversion of the lane total, backward sweep.
-//   Lane l owns positions l, l + lanes, ..., so a warp's loads of one row
-//   are contiguous.  Each lane adds one Fermat chain (362 products) and
-//   shortens every thread's 3 rows-product chain: the lane count trades
-//   the two (PERF.md).  The same positions hold the prefix and then the
-//   inverse, so it needs no scratch.
+// * mont_pow: a^e for a host exponent (fields/fp.py pow_const: t^n in
+//   ops/ntt.py lagrange_coeffs), one thread per element running the
+//   square-and-multiply chain in registers.  Bound: one thread's dependent
+//   latency where the batch is small, multiply throughput where it is
+//   large.
+// * inv: the inverse (fields/fp.py inv, so fp2.inv and the affine
+//   conversion of every proof point), one thread per element running the
+//   safegcd inversion of field.cuh (inv_safegcd), which replaced the
+//   Fermat chain a^(p-2) (362 dependent products for q - 2, 0.17 ms for
+//   one element).  Every lane of a warp runs the divstep loop; a lane past
+//   the batch inverts zero, so the warp's vote sees all 32.  Bound: one
+//   thread's 600 divsteps where the batch is small (one to fifteen
+//   elements on the main path).
+// * batch_inv_rows: the Montgomery batch inversion of fields/fp.py
+//   batch_inv_rows (before: 3 launches per row of 4,096 lanes plus a
+//   Fermat chain, about 1,900 launches per setup), one thread per lane:
+//   forward sweep of exclusive prefix products written into the output,
+//   the block's lane totals multiplied in shared memory, one safegcd
+//   inversion a block, backward sweep (field.cuh batch_inv_block).  Lane l
+//   owns positions l, l + lanes, ..., so a warp's loads of one row are
+//   contiguous.  A lane shortens every thread's 3 rows-product chain and
+//   adds 2 log2(128) products to the block's scan; an inversion a lane
+//   instead (ops/kernels.py INV_LANES, PERF.md, scripts/inv_designs.py)
+//   cost more.  The same positions hold the prefix and then the inverse,
+//   so it needs no scratch in device memory.
 #include <cuda_runtime.h>
 #include "curve.cuh"
 
@@ -38,6 +46,9 @@ constexpr int kThreads = 256;
 // the chains are latency-bound: small blocks spread few threads over
 // many SMs
 constexpr int kChainThreads = 64;
+// the batch inversion's lanes a block, one inversion a block
+// (scripts/inv_designs.py: 128 against 256, and one inversion a lane)
+constexpr int kInvThreads = 128;
 
 template <class M, bool DIF>
 __global__ void __launch_bounds__(kThreads)
@@ -90,11 +101,22 @@ mont_pow_kernel(const uint32_t* __restrict__ a, uint32_t* __restrict__ out,
 
 template <class M>
 __global__ void __launch_bounds__(kChainThreads)
+inv_kernel(const uint32_t* __restrict__ a, uint32_t* __restrict__ out,
+           size_t n) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const Fp<M> x = i < n ? fp_load<M>(a, n, i) : fp_zero<M>();
+  const Fp<M> y = inv_safegcd<M, WarpVote>(x);
+  if (i < n) fp_store<M>(out, n, i, y);
+}
+
+template <class M>
+__global__ void __launch_bounds__(kInvThreads)
 batch_inv_rows_kernel(const uint32_t* __restrict__ a, uint32_t* out, size_t n,
-                      size_t lanes, Exponent pm2) {
-  const size_t l = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (l >= lanes) return;
-  batch_inv_lane<M>(a, out, n, lanes, l, pm2);
+                      size_t lanes) {
+  __shared__ uint32_t smem[batch_inv_smem_words(kInvThreads)];
+  BlockSched sync;
+  batch_inv_block<M, kInvThreads>(a, out, n, lanes, blockIdx.x, threadIdx.x,
+                                  smem, sync);
 }
 
 inline unsigned blocks_for(size_t n, int threads = kThreads) {
@@ -169,20 +191,27 @@ extern "C" int oz_mont_pow(int field, const void* a, void* out, long long n,
   return (int)cudaGetLastError();
 }
 
-// pm2: the words of p - 2 and its top set bit; 1 <= lanes <= n
-extern "C" int oz_batch_inv_rows(int field, const void* a, void* out,
-                                 long long n, long long lanes,
-                                 const unsigned* pm2, int top, void* stream) {
-  if (n <= 0 || lanes <= 0 || lanes > n || top < 0 || top > 255)
-    return (int)cudaErrorInvalidValue;
+extern "C" int oz_inv(int field, const void* a, void* out, long long n,
+                      void* stream) {
+  if (n <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  Exponent ex;
-  for (int k = 0; k < 8; k++) ex.w[k] = pm2[k];
-  ex.top = top;
-  const unsigned g = blocks_for((size_t)lanes, kChainThreads);
+  const unsigned g = blocks_for((size_t)n, kChainThreads);
   if (field == 0)
-    batch_inv_rows_kernel<CurveFr><<<g, kChainThreads, 0, s>>>((const uint32_t*)a, (uint32_t*)out, (size_t)n, (size_t)lanes, ex);
+    inv_kernel<CurveFr><<<g, kChainThreads, 0, s>>>((const uint32_t*)a, (uint32_t*)out, (size_t)n);
   else
-    batch_inv_rows_kernel<CurveFq><<<g, kChainThreads, 0, s>>>((const uint32_t*)a, (uint32_t*)out, (size_t)n, (size_t)lanes, ex);
+    inv_kernel<CurveFq><<<g, kChainThreads, 0, s>>>((const uint32_t*)a, (uint32_t*)out, (size_t)n);
+  return (int)cudaGetLastError();
+}
+
+// 1 <= lanes <= n
+extern "C" int oz_batch_inv_rows(int field, const void* a, void* out,
+                                 long long n, long long lanes, void* stream) {
+  if (n <= 0 || lanes <= 0 || lanes > n) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const unsigned g = blocks_for((size_t)lanes, kInvThreads);
+  if (field == 0)
+    batch_inv_rows_kernel<CurveFr><<<g, kInvThreads, 0, s>>>((const uint32_t*)a, (uint32_t*)out, (size_t)n, (size_t)lanes);
+  else
+    batch_inv_rows_kernel<CurveFq><<<g, kInvThreads, 0, s>>>((const uint32_t*)a, (uint32_t*)out, (size_t)n, (size_t)lanes);
   return (int)cudaGetLastError();
 }

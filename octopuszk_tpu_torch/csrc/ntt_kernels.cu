@@ -36,12 +36,6 @@ namespace {
 constexpr int kMaxThreads = 256;
 constexpr int kMaxLog = 12;
 
-struct BlockSched {
-  __device__ unsigned first() const { return threadIdx.x; }
-  __device__ unsigned step() const { return blockDim.x; }
-  __device__ void barrier() { __syncthreads(); }
-};
-
 template <class M, bool DIF>
 __global__ void __launch_bounds__(kMaxThreads)
 ntt_block_kernel(NttArgs a) {

@@ -256,13 +256,18 @@ def pow_const(spec: FieldSpec, a, e: int):
 
 
 def inv(spec: FieldSpec, a):
-    """a^(p-2): vectorized Fermat inversion. inv(0) = 0."""
-    return pow_const(spec, a, spec.p_minus_2)
+    """Elementwise inverse, inv(0) = 0: one call of ops/kernels.py inv (on
+    the card one launch of the safegcd inversion; for a CPU tensor the
+    reference's Fermat chain a^(p-2)).  The inverse is unique, so the words
+    are the reference's."""
+    from octopuszk_tpu_torch.ops import kernels
+    return kernels.inv(spec, a)
 
 
 def batch_inv(spec: FieldSpec, a):
     """Elementwise inverse along the last axis via Hillis-Steele prefix and
-    suffix products and one Fermat inversion.  Inputs must be nonzero."""
+    suffix products and one inversion (``inv``).  Inputs must be nonzero.
+    The port's callers take ``batch_inv_rows`` (one launch) instead."""
     n = a.shape[-1]
     one = _const_like(spec.one_mont_words, a)
 
@@ -291,8 +296,9 @@ def batch_inv_rows(spec: FieldSpec, a, lanes: int | None = None):
     """Elementwise inverse of a flat [8, n] batch in O(n) multiplies.
 
     Two-level Montgomery trick: lane-parallel serial prefix products down
-    ``rows = n/lanes`` steps, one vectorized Fermat inversion of the lane
-    totals, then a backward sweep emitting inverses.  Zero inputs map to
+    ``rows = n/lanes`` steps, one inversion of each lane total (safegcd
+    on the card, Fermat in the plain version), then a backward sweep
+    emitting inverses.  Zero inputs map to
     zero (the identity-safe convention the affine conversion relies on).
     One call of ops/kernels.py batch_inv_rows (one launch on the card),
     which groups the work into its own ``INV_LANES`` lanes.  ``lanes`` is

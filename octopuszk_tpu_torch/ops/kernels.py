@@ -2,10 +2,12 @@
 
 Nine kernels (sources under ``csrc/``) replace the Pallas kernels of the
 same names in ``octopuszk_tpu/ops/pallas_ops.py`` and, for ``row_gather``,
-``_pallas_gather`` in ``scripts/gather_experiment.py``; eight more run, in
+``_pallas_gather`` in ``scripts/gather_experiment.py``; nine more run, in
 one launch each, the chains of ``butterfly``, ``mont_mul`` and
 ``add_points`` launches that the main path made (the reference runs those
-loops inside one compiled program):
+loops inside one compiled program; ``inv`` runs the inverse that the
+reference computes as a ``mont_mul`` chain by another algorithm, safegcd,
+whose inverse is the same unique value):
 
 =================================  ====================  ==============
 wrapper                            source                chain of
@@ -21,6 +23,7 @@ wrapper                            source                chain of
 ``row_gather``                     gather_kernels.cu
 ``ntt_block``                      ntt_kernels.cu        ``butterfly``
 ``mont_pow``                       field_kernels.cu      ``mont_mul``
+``inv``                            field_kernels.cu      ``mont_mul``
 ``batch_inv_rows``                 field_kernels.cu      ``mont_mul``
 ``window_table``                   table_kernels.cu      ``add_points``
 ``combine_windows``                table_kernels.cu      ``add_points``
@@ -97,7 +100,7 @@ class Library(typing.NamedTuple):
 
 FIELD_SOURCES = ("field_kernels.cu", "ntt_kernels.cu")
 FIELD_ENTRIES = ("oz_butterfly", "oz_mont_mul", "oz_mul_sub", "oz_ntt_block",
-                 "oz_mont_pow", "oz_batch_inv_rows")
+                 "oz_mont_pow", "oz_inv", "oz_batch_inv_rows")
 CURVE_SOURCES = ("field_kernels.cu", "ec_kernels.cu", "scan_kernels.cu",
                  "ntt_kernels.cu", "table_kernels.cu", "bucket_kernels.cu",
                  "prefix_kernels.cu")
@@ -131,9 +134,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 KERNEL_NAMES = ("butterfly", "mont_mul", "mul_sub", "add_points",
                 "double_points", "scan_accumulate_mixed",
                 "scan_accumulate_mixed_total", "scan_accumulate",
-                "row_gather", "mont_pow", "batch_inv_rows", "window_table",
-                "combine_windows", "lane_row_sums", "tree_sum", "prefix_sum",
-                "ntt_block")
+                "row_gather", "mont_pow", "inv", "batch_inv_rows",
+                "window_table", "combine_windows", "lane_row_sums",
+                "tree_sum", "prefix_sum", "ntt_block")
 # launches per library and wrapper (the row gather's under GATHER_CURVE)
 CURVE_LAUNCHES = {c: dict.fromkeys(KERNEL_NAMES, 0) for c in LIBRARIES}
 
@@ -190,14 +193,22 @@ def _words_macro(x: int) -> str:
 
 
 def _modulus_macros(tag: str, spec: FieldSpec) -> list:
-    """A modulus's words, one in Montgomery form and -p^-1 mod 2^32.
-    Raises ValueError for p >= 2^255: field.cuh's add and product need 2p
-    below 2^256 (the bound is argued there)."""
+    """A modulus's words, one in Montgomery form and -p^-1 mod 2^32; for
+    field.cuh's safegcd inversion p in nine 30-bit limbs, p^-1 mod 2^30
+    and the words of R^3 mod p (the product by it turns the inverse of
+    a R into a^-1 R).  Raises ValueError for p >= 2^255: field.cuh's add
+    and product need 2p below 2^256 (the bound is argued there)."""
     if spec.p >= 1 << 255:
         raise ValueError(f"{spec.name}: the kernels need p < 2^255")
+    limbs = ", ".join(str((spec.p >> (30 * i)) & (2**30 - 1))
+                      for i in range(9))
     return [f"#define {tag}_P_WORDS {_words_macro(spec.p)}",
             f"#define {tag}_ONE_WORDS {_words_macro(spec.r_mod_p)}",
-            f"#define {tag}_N0INV 0x{spec.n0inv32:08x}u"]
+            f"#define {tag}_N0INV 0x{spec.n0inv32:08x}u",
+            f"#define {tag}_P30_LIMBS {{{limbs}}}",
+            f"#define {tag}_PINV30 0x{pow(spec.p, -1, 1 << 30):08x}u",
+            f"#define {tag}_R3_WORDS "
+            f"{_words_macro(pow(spec.r_mod_p, 3, spec.p))}"]
 
 
 def constants_header() -> str:
@@ -305,7 +316,8 @@ def _argtypes():
         "oz_ntt_block": [ci, ci, vp, vp, vp, ctypes.POINTER(ll), vp, vp, ci,
                          ll, ll, vp],
         "oz_mont_pow": [ci, vp, vp, ll, words, ci, vp],
-        "oz_batch_inv_rows": [ci, vp, vp, ll, ll, words, ci, vp],
+        "oz_inv": [ci, vp, vp, ll, vp],
+        "oz_batch_inv_rows": [ci, vp, vp, ll, ll, vp],
         "oz_window_table": [ci, addrs, addrs, ll, ci, ci, addrs, vp, vp],
         "oz_combine_windows": [ci, addrs, ll, ci, ci, addrs, vp],
         "oz_lane_row_sums": [ci, addrs, ll, ll, ll, addrs, vp],
@@ -599,12 +611,13 @@ def ntt_block(spec: FieldSpec, x, tw, dif: bool, pre=None, post=None):
 
 
 # ---------------------------------------------------------------------------
-# (b)'s chains: mont_pow, batch_inv_rows
+# (b)'s chains: mont_pow, inv, batch_inv_rows
 # ---------------------------------------------------------------------------
 
-# lanes of the batch inversion kernel: each lane is one thread with one
-# Fermat chain (PERF.md has the lane counts measured)
-INV_LANES = 1 << 15
+# lanes of the batch inversion kernel, one thread each, 128 a block with
+# one inversion (PERF.md has the lane counts and designs measured,
+# scripts/inv_designs.py)
+INV_LANES = 1 << 16
 
 
 def _exponent(e: int):
@@ -648,11 +661,36 @@ def mont_pow(spec: FieldSpec, a, e: int):
     return out
 
 
+def inv_plain(spec: FieldSpec, a):
+    """The reference's own inversion, a^(p-2) by the Fermat chain over the
+    plain product; inv(0) = 0."""
+    return mont_pow_plain(spec, a, spec.p_minus_2)
+
+
+def inv(spec: FieldSpec, a):
+    """Elementwise inverse (Montgomery in and out, zero -> zero) in one
+    launch: one thread per element runs the safegcd inversion of
+    csrc/field.cuh (at most 600 divsteps in batches of 30, each batch's
+    2x2 matrix applied to the 30-bit limbs), not the Fermat chain.  The
+    inverse is unique, so the words are the plain version's."""
+    (a,) = _field_operands(a)
+    if not a.is_cuda:
+        return inv_plain(spec, a)
+    out = torch.empty_like(a)
+    if out.numel() == 0:
+        return out
+    fn, fid, curve = _field_entry(spec, "oz_inv")
+    rc = _launch(fn, a.device, fid, a.data_ptr(), out.data_ptr(), _count(a))
+    _check(rc, "inv")
+    CURVE_LAUNCHES[curve]["inv"] += 1
+    return out
+
+
 def batch_inv_rows_plain(spec: FieldSpec, a, lanes: int = INV_LANES):
     """Two-level Montgomery trick over a flat [8, n] batch: lane l owns
     positions [l rows, (l+1) rows); lane-parallel exclusive prefix
-    products, one Fermat inversion of the lane totals, a backward sweep.
-    Zero maps to zero."""
+    products, one Fermat inversion of the lane totals (the plain
+    inversion), a backward sweep.  Zero maps to zero."""
     n = a.shape[-1]
     lanes = min(lanes, n)
     rows = -(-n // lanes)
@@ -680,11 +718,12 @@ def batch_inv_rows_plain(spec: FieldSpec, a, lanes: int = INV_LANES):
 
 def batch_inv_rows(spec: FieldSpec, a):
     """Elementwise inverse of a flat int32[8, n] batch (zero -> zero) in one
-    launch: one thread per lane runs the forward sweep, the Fermat
-    inversion of its total and the backward sweep, over ``INV_LANES``
-    lanes.  The kernel's lane l owns positions l, l + lanes, ..., the plain
-    version's a contiguous run; the inverse is unique, so the words do not
-    depend on the layout."""
+    launch over ``INV_LANES`` lanes: one thread per lane runs the forward
+    sweep of prefix products and, after its block of 128 lanes has
+    multiplied their totals and inverted the product (one safegcd
+    inversion a block), the backward sweep.  The kernel's lane l owns
+    positions l, l + lanes, ..., the plain version's a contiguous run; the
+    inverse is unique, so the words do not depend on the layout."""
     if a.dtype != torch.int32 or a.dim() != 2 or a.shape[0] != NUM_WORDS:
         raise TypeError(
             f"expected a flat int32[8, n] batch, got {a.dtype}{tuple(a.shape)}")
@@ -695,10 +734,9 @@ def batch_inv_rows(spec: FieldSpec, a):
     n = a.shape[1]
     if n == 0:
         return out
-    words, top = _exponent(spec.p_minus_2)
     fn, fid, curve = _field_entry(spec, "oz_batch_inv_rows")
     rc = _launch(fn, a.device, fid, a.data_ptr(), out.data_ptr(), n,
-                 min(INV_LANES, n), words, top)
+                 min(INV_LANES, n))
     _check(rc, "batch_inv_rows")
     CURVE_LAUNCHES[curve]["batch_inv_rows"] += 1
     return out

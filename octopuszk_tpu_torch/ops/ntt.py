@@ -244,7 +244,7 @@ def lagrange_coeffs(spec: FieldSpec, n: int, t):
     one = fp.constant(spec.one_mont_words, (n,), dev)
     if bool(on_domain.any()):
         return torch.where(on_domain, one, torch.zeros_like(one))
-    inv_diff = fp.batch_inv(spec, diff)
+    inv_diff = fp.batch_inv_rows(spec, diff)                    # one launch
     tn = fp.pow_const(spec, t_col, n)                           # [8, 1]
     zt_over_n = fp.mont_mul(spec, fp.sub(spec, tn, one[:, :1]),
                             _elem(spec, pow(n, -1, spec.p), dev)[:, None])

@@ -195,7 +195,7 @@ def distributed_lagrange(mesh, spec: FieldSpec, n: int, t: int):
                       w)
         zc = ntt._elem(spec, zt_over_n, dev)[:, None]
         out.append(fp.mont_mul(spec, fp.mont_mul(
-            spec, w, fp.batch_inv(spec, diff)), zc))
+            spec, w, fp.batch_inv_rows(spec, diff)), zc))
     return out
 
 

@@ -1,0 +1,48 @@
+"""The Groth16 proof of the main path's circuit on each curve, printed as a
+digest of its words: ``serial_construct(2^log2 - 3, 3, seed=5)``,
+``setup(seed=6)``, ``prove(seed=7)`` on the card (the seeds of
+``chip_smoke.py``'s packed and ``bn254b`` paths), then sha256 of the
+proof's affine coordinates as python ints.  Run it once with each of two
+commits' packages on the path: equal lines mean equal proofs.
+
+    python -m octopuszk_tpu_torch.scripts.proof_words [log2]      # default 20
+    (cd <other checkout> && PYTHONPATH=$PWD python3 <this file> 20)
+
+Needs the card and raises without one.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import sys
+
+from octopuszk_tpu_torch.curves.family import bn254b
+from octopuszk_tpu_torch.models.groth16 import prover, setup, verifier
+from octopuszk_tpu_torch.relations import construct
+from octopuszk_tpu_torch.utils import device as _device
+
+
+def main(log2: int = 20) -> list:
+    dev = _device.resolve(None)
+    ni = 3
+    out = []
+    for name, cv in (("bn254a", None), ("bn254b", bn254b())):
+        extra = {} if cv is None else {"spec": cv.fr}
+        r1cs, primary, aux = construct.serial_construct(
+            (1 << log2) - ni, ni, seed=5, device=dev, **extra)
+        crs = setup.setup(r1cs, seed=6, curve=cv)
+        proof = prover.prove(crs.proving_key, primary, aux, seed=7, curve=cv)
+        words = repr((proof.a, proof.b, proof.c)).encode()
+        line = {"curve": name, "log2": log2,
+                "verify": verifier.verify(crs.verification_key, primary,
+                                          proof, curve=cv),
+                "proof_sha256": hashlib.sha256(words).hexdigest()}
+        print(json.dumps(line), flush=True)
+        out.append(line)
+    return out
+
+
+if __name__ == "__main__":
+    main(*(int(a) for a in sys.argv[1:]))
+    sys.exit(0)

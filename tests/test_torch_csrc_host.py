@@ -27,7 +27,7 @@ from octopuszk_tpu_torch.curves import bn254
 from octopuszk_tpu_torch.curves.family import bn254b
 from octopuszk_tpu_torch.fields import spec as tspec
 from octopuszk_tpu_torch.ops import kernels
-from octopuszk_tpu_torch.utils.bigint import ints_to_words
+from octopuszk_tpu_torch.utils.bigint import ints_to_words, words_to_ints
 
 torch.set_num_threads(1)
 
@@ -283,14 +283,25 @@ extern "C" void pow_op(int field, const uint32_t* a, uint32_t* out, long n,
   });
 }
 
-// every lane of the batch inversion, one after the other
-extern "C" void batch_inv_op(int field, const uint32_t* a, uint32_t* out,
-                             long n, long lanes, const uint32_t* pm2,
-                             int top) {
-  const Exponent e = exponent(pm2, top);
+// a vote that never ends the divstep loop early: every batch runs, as on
+// a lane of a warp whose other lanes still need them
+struct NoExit {
+  static bool all(bool) { return false; }
+};
+
+// the safegcd inversion of each element (vote: 0 the element alone, 1 all
+// 20 batches)
+template <class M, class V>
+static void inv_all(const uint32_t* a, uint32_t* out, long n) {
+  for (long i = 0; i < n; i++)
+    fp_store<M>(out, n, i, inv_safegcd<M, V>(fp_load<M>(a, n, i)));
+}
+
+extern "C" void inv_op(int field, int vote, const uint32_t* a,
+                       uint32_t* out, long n) {
   with_field(field, [&](auto m) {
-    for (long l = 0; l < lanes; l++)
-      batch_inv_lane<decltype(m)>(a, out, n, lanes, l, e);
+    if (vote) inv_all<decltype(m), NoExit>(a, out, n);
+    else inv_all<decltype(m), OneThread>(a, out, n);
   });
 }
 
@@ -438,6 +449,59 @@ struct HostBlock {
   unsigned step() const { return 1; }
   void barrier() {}
 };
+
+// The threads of a block as host threads that meet at every barrier.
+struct HostBarrier {
+  int parties;
+  int arrived = 0;
+  unsigned long phase = 0;
+  std::mutex mu;
+  std::condition_variable cv;
+  void barrier() {
+    std::unique_lock<std::mutex> lk(mu);
+    const unsigned long ph = phase;
+    if (++arrived == parties) {
+      arrived = 0;
+      phase++;
+      cv.notify_all();
+    } else {
+      cv.wait(lk, [&] { return phase != ph; });
+    }
+  }
+};
+
+// the batch inversion's blocks of T lanes (4 or the kernel's 128), one
+// after the other, each on T host threads
+template <class M, int T>
+static void batch_inv_blocks(const uint32_t* a, uint32_t* out, long n,
+                             long lanes) {
+  std::vector<uint32_t> smem(batch_inv_smem_words(T));
+  for (long b = 0; b * T < lanes; b++) {
+    HostBarrier sync{T};
+    std::vector<std::thread> threads;
+    for (unsigned t = 0; t < (unsigned)T; t++)
+      threads.emplace_back([&, t] {
+        batch_inv_block<M, T>(a, out, n, lanes, b, t, smem.data(), sync);
+      });
+    for (std::thread& th : threads) th.join();
+  }
+}
+
+extern "C" void batch_inv_op(int field, int threads, const uint32_t* a,
+                             uint32_t* out, long n, long lanes) {
+  with_field(field, [&](auto m) {
+    if (threads == 4) batch_inv_blocks<decltype(m), 4>(a, out, n, lanes);
+    else batch_inv_blocks<decltype(m), 128>(a, out, n, lanes);
+  });
+}
+
+// the positions owned by the first ``threads`` lanes (n if each position
+// has one owner and the threads past ``lanes`` own none)
+extern "C" long batch_inv_owned(long n, long lanes, long threads) {
+  long owned = 0;
+  for (long l = 0; l < threads; l++) owned += batch_inv_rows_count(n, lanes, l);
+  return owned;
+}
 
 template <class M, bool DIF>
 static void ntt_all(const NttArgs& a) {
@@ -606,6 +670,22 @@ def _exponent(e):
                                    for k in range(8)]), e.bit_length() - 1
 
 
+def _batch_inv(host_lib, fid, a, lanes, threads=128):
+    """The batch inversion over ``lanes`` in blocks of ``threads`` lanes
+    (the kernel's 128, or 4: several blocks at these sizes); each
+    position must have one owner among the grid's threads, and the
+    threads past the last lane none."""
+    out = torch.empty_like(a)
+    n = a.shape[1]
+    host_lib.batch_inv_owned.restype = ctypes.c_long
+    grid = -(-lanes // threads) * threads
+    assert host_lib.batch_inv_owned(ctypes.c_long(n), ctypes.c_long(lanes),
+                                    ctypes.c_long(grid)) == n, lanes
+    host_lib.batch_inv_op(fid, threads, _ptr(a), _ptr(out), ctypes.c_long(n),
+                          ctypes.c_long(lanes))
+    return out
+
+
 @pytest.mark.parametrize("field", sorted(FIELDS))
 def test_field_chains(host_lib, field):
     """The square-and-multiply chain (q - 2, r - 2, short exponents, 0) and
@@ -620,13 +700,62 @@ def test_field_chains(host_lib, field):
         host_lib.pow_op(fid, _ptr(a), _ptr(out),
                         ctypes.c_long(37), words, top)
         assert torch.equal(out, kernels.mont_pow_plain(spec, a, e)), e
-    words, top = _exponent(spec.p_minus_2)
     for lanes in (8, 37, 1):
-        out = torch.empty_like(a)
-        host_lib.batch_inv_op(fid, _ptr(a), _ptr(out),
-                              ctypes.c_long(37), ctypes.c_long(lanes), words,
-                              top)
+        out = _batch_inv(host_lib, fid, a, lanes)
         assert torch.equal(out, kernels.batch_inv_rows_plain(spec, a, 5)), lanes
+        out = _batch_inv(host_lib, fid, a, lanes, threads=4)
+        assert torch.equal(out, kernels.batch_inv_rows_plain(spec, a, 5)), lanes
+
+
+def _inversion_values(p):
+    """Edge words: 0, 1, 2, p - 1, p - 2, 2^255 mod p, powers of two,
+    values with long runs of zero bits (two set bits far apart, a low and
+    a high run of ones), then seeded random words below p."""
+    bits = p.bit_length()
+    vals = [0, 1, 2, p - 1, p - 2, (1 << 255) % p]
+    vals += [1 << k for k in range(1, bits - 1, 11)]
+    vals += [(1 << (bits - 2)) + 1, (1 << (bits - 2)) + (1 << 3),
+             (1 << 40) - 1, ((1 << 30) - 1) << (bits - 32),
+             p - (1 << (bits // 2)),
+             p >> 1]
+    rng = random.Random(9)
+    vals += [rng.randrange(p) for _ in range(N - len(vals))]
+    return vals
+
+
+@pytest.mark.parametrize("field", sorted(FIELDS))
+def test_safegcd_inversion(host_lib, field):
+    """field.cuh's safegcd inversion (inv_safegcd) and the batch
+    inversion's lane sweeps built on it, against the plain Fermat chain
+    (mont_pow_plain of p - 2) and python's pow(x, -1, p) on the values of
+    the words (Montgomery: the inverse of a R is a^-1 R); zero gives zero.
+    The inversion ends its divstep loop when g is zero (vote 0) or runs
+    all 20 batches, as a lane whose warp still needs them (vote 1): the
+    same words.  The batch inversion (field.cuh batch_inv_block: lane
+    sweeps, the block's lane totals multiplied, one inversion a block; a
+    block's threads as host threads meeting at its barriers) at 1, 8 and
+    37 lanes of 64 words with zeros among them, in blocks of the kernel's
+    128 lanes and of 4 (up to ten blocks), the threads past the last lane
+    owning nothing."""
+    fid, spec = FIELDS[field]
+    p = spec.p
+    vals = _inversion_values(p)
+    a = _words(vals)
+    want = kernels.mont_pow_plain(spec, a, spec.p_minus_2)
+    r2 = pow(1 << 256, 2, p)
+    assert words_to_ints(want.numpy()) == [pow(v, -1, p) * r2 % p if v else 0
+                                    for v in vals]
+    for vote in (0, 1):
+        out = torch.empty_like(a)
+        host_lib.inv_op(fid, vote, _ptr(a), _ptr(out), ctypes.c_long(N))
+        assert torch.equal(out, want), vote
+    b = a.clone()
+    b[:, 1::9] = 0
+    want_b = torch.where((b == 0).all(0), torch.zeros_like(want), want)
+    for lanes in (1, 8, 37):
+        for threads in (128, 4):
+            assert torch.equal(_batch_inv(host_lib, fid, b, lanes, threads),
+                               want_b), (lanes, threads)
 
 
 def _chain(host_lib, op, gname, a, b, out_shape, batch, n, x=0, y=0):

@@ -108,6 +108,18 @@ def test_pow_const(field):
     _same(rfp.pow_const(rs, ra, 0b1011001), fp.pow_const(ts, ta, 0b1011001))
 
 
+def test_kernel_inv(field):
+    """ops/kernels.py ``inv`` (on the CPU its plain version) and fp.inv, the
+    entry point that now calls it, against the reference's fp.inv; zero
+    among the inputs maps to zero."""
+    from octopuszk_tpu_torch.ops import kernels
+    rs, ts, (ra, ta), _ = field
+    want = rfp.inv(rs, ra)
+    _same(want, kernels.inv(ts, ta))
+    _same(want, fp.inv(ts, ta))
+    assert not fp.inv(ts, ta)[:, 0].any()          # element 0 is zero
+
+
 def test_batch_inv(field):
     rs, ts, _, _ = field
     vals = [v or 7 for v in _values(rs.p, 3)]
@@ -174,6 +186,19 @@ def test_fp2_mul_fp_and_predicates(fp2_pairs):
     mask = np.arange(N) % 2 == 0
     _same2(rfp2.select(jnp.asarray(mask), ra, rb),
            fp2.select(torch.from_numpy(mask), ta, tb))
+
+
+def test_fp2_inv_of_zero(fp2_pairs):
+    """fp2.inv through fp.inv with an element whose both components are
+    zero, against the reference; it maps to zero."""
+    rs, ts, (ra, ta), _ = fp2_pairs
+    ra = (ra[0].at[:, 1].set(0), ra[1].at[:, 1].set(0))
+    ta = tuple(c.clone() for c in ta)
+    for c in ta:
+        c[:, 1] = 0
+    got = fp2.inv(ts, ta)
+    _same2(rfp2.inv(rs, ra), got)
+    assert not got[0][:, 1].any() and not got[1][:, 1].any()
 
 
 def test_fp2_batch_inv_rows(fp2_pairs):

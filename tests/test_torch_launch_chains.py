@@ -1,5 +1,5 @@
 """The chains of (b) mont_mul and (d) add_points launches that run as one
-kernel launch each (ops/kernels.py ``mont_pow``, ``batch_inv_rows``,
+kernel launch each (ops/kernels.py ``mont_pow``, ``inv``, ``batch_inv_rows``,
 ``window_table``, ``combine_windows``, ``lane_row_sums``, ``tree_sum``,
 ``prefix_sum``): their plain versions (what a wrapper runs for a CPU
 tensor) against the JAX reference's functions word for word, the full
@@ -159,14 +159,14 @@ def test_mont_pow_against_reference(field, e):
 
 @pytest.mark.parametrize("field", sorted(SPECS))
 def test_fermat_inversion_against_python_ints(field, spies):
-    """fp.inv, the q - 2 (r - 2) chain, is one mont_pow call and equals
-    pow(x, p - 2, p); inv(0) = 0."""
+    """fp.inv is one call of ``inv`` (whose plain version is the q - 2 (r -
+    2) chain) and equals pow(x, p - 2, p); inv(0) = 0."""
     ts = SPECS[field][1]
     rng = random.Random(32)
     raw = [0, 1, 2, ts.p - 1] + [rng.randrange(ts.p) for _ in range(4)]
     a = torch.from_numpy(ints_to_words([ts.to_mont(v) for v in raw]).copy())
     got = fp.inv(ts, a)
-    assert _called(spies) == {"mont_pow": 1}
+    assert _called(spies) == {"inv": 1}
     want = [pow(v, ts.p - 2, ts.p) for v in raw]
     assert [ts.from_mont(v) for v in words_to_ints(got.numpy())] == want
     _same_words(got, kernels.mont_pow_plain(ts, a, ts.p_minus_2))
@@ -192,7 +192,7 @@ def test_batch_inv_rows_against_reference(field, spies):
 
 
 def test_fp2_inversions_are_one_call(spies):
-    """fp2.inv reaches one mont_pow, fp2.batch_inv_rows one batch_inv_rows
+    """fp2.inv reaches one inv, fp2.batch_inv_rows one batch_inv_rows
     (through the norm); both invert."""
     ts = tspec.FQ
     rng = random.Random(34)
@@ -200,10 +200,10 @@ def test_fp2_inversions_are_one_call(spies):
     comps[0][2] = comps[1][2] = 0                # zero -> zero
     a = tuple(torch.from_numpy(ints_to_words(c).copy()) for c in comps)
     inv1 = fp2.inv(ts, a)
-    assert _called(spies)["mont_pow"] == 1
+    assert _called(spies)["inv"] == 1
     spies.update(dict.fromkeys(spies, 0))
     inv2 = fp2.batch_inv_rows(ts, a)
-    assert spies["batch_inv_rows"] == 1 and spies["mont_pow"] == 0
+    assert spies["batch_inv_rows"] == 1 and spies["inv"] == 0
     _same_words(inv1, inv2)
     prod = fp2.mul(ts, a, inv2)
     one = [ts.r_mod_p] * 6
@@ -217,9 +217,27 @@ def test_points_to_packed_is_one_inversion(spies):
     pts = tg.points_to_device(_host_points(tg, 35, 9), "cpu")
     packed = msm.points_to_packed(tg, pts)
     assert spies["batch_inv_rows"] == 1
-    assert spies["mont_pow"] == 0
+    assert spies["mont_pow"] == 0 and spies["inv"] == 0
     back = tg.points_to_host(msm.packed_to_points(tg, packed))
     assert back == tg.points_to_host(pts)
+
+
+def test_lagrange_is_one_batch_inversion(spies):
+    """ntt.lagrange_coeffs inverts t - omega^i with one batch_inv_rows call
+    (it took 2 log2 n mont_mul calls and a Fermat chain through
+    fp.batch_inv), and t^n with one mont_pow; its values equal
+    (t^n - 1) / n * omega^i / (t - omega^i) in python ints."""
+    from octopuszk_tpu_torch.ops import ntt
+    ts, n, t = tspec.FR, 64, 123456789
+    got = ntt.lagrange_coeffs(
+        ts, n, torch.from_numpy(ints_to_words([ts.to_mont(t)]).copy())[:, 0])
+    assert spies["batch_inv_rows"] == 1 and spies["mont_pow"] == 1
+    assert spies["inv"] == 0
+    p, w = ts.p, ts.rou_of_order(n)
+    zt = (pow(t, n, p) - 1) * pow(n, -1, p) % p
+    want = [zt * pow(w, i, p) * pow(t - pow(w, i, p), -1, p) % p
+            for i in range(n)]
+    assert [ts.from_mont(v) for v in words_to_ints(got.numpy())] == want
 
 
 # ---------------------------------------------------------------------------
@@ -296,6 +314,10 @@ def test_new_wrappers_refuse_bad_operands():
         kernels.mont_pow(ts, a, 1 << 256)
     with pytest.raises(TypeError):
         kernels.mont_pow(ts, a.to(torch.int64), 3)
+    with pytest.raises(TypeError):
+        kernels.inv(ts, a.to(torch.int64))
+    with pytest.raises(TypeError):
+        kernels.inv(ts, a[:7])
     with pytest.raises(TypeError):
         kernels.batch_inv_rows(ts, a[:, :, None])
     with pytest.raises(TypeError):
