@@ -101,8 +101,9 @@ line holds ptxas's registers and spills for every kernel and unit.
 ``double_points`` has one record per doubling chain of the main path (the
 Abel sum's, the window table's; the window combine's is now inside
 ``combine_windows``), timed per chain: one launch each.  The records of
-chains (``double_points``, ``lane_row_sums``, ``combine_windows``,
-``mont_pow``) carry ``critical_path_rounds`` beside the operations bound:
+chains (``double_points``, ``lane_row_sums``, ``tree_sum``,
+``combine_windows``, ``mont_pow``) carry ``critical_path_rounds`` beside
+the operations bound:
 the dependent rounds of field products on one chain's path (one product a
 round on a thread, up to four on a warp); ``inv`` the divsteps, matrix
 updates and products of its slowest element.  The chains of
@@ -282,7 +283,8 @@ DIVSTEP_OPS, BATCH_MADS = 23, 2 * 90
 WARP_ROUNDS = {("add", 1): 2 + 2, ("add", 2): 5 + 2 + 5,
                ("double", 1): 1 + 1, ("double", 2): 3 + 1 + 3}
 # products in turn per add on each thread of a pair (rcb.cuh pt_add_pair:
-# half of each level, and on G2 one of the two products by b3)
+# half of each level, and on G2 one of the two products by b3; the tree's
+# levels and lane_row_sums' rows run one such add each)
 PAIR_ROUNDS = {1: 3 + 3, 2: 9 + 3 + 9}
 
 
@@ -753,15 +755,16 @@ def check_kernels(dev, log2: int, int32_rate: float, reps: int,
         del rest
         tot = rand_point(gen, cd, (num_win, width), dev)
         lt = rand_point(gen, cd, (num_win, lanes), dev)
-        tree_nodes = sum(-(-width // (2 << lv))
-                         for lv in range((width - 1).bit_length()))
+        tree_levels = (width - 1).bit_length()
+        tree_nodes = sum(-(-width // (2 << lv)) for lv in range(tree_levels))
         levels = (lanes - 1).bit_length()
         record("tree_sum", f"{g} [{num_win} win, {width} lanes]",
                [8, num_win, width],
                lambda: kernels.tree_sum(g, tot),
                lambda: kernels.tree_sum_plain(g, tot),
                pt_bytes * num_win * (width + 1),
-               add_mads * num_win * tree_nodes)
+               add_mads * num_win * tree_nodes,
+               critical=tree_levels * PAIR_ROUNDS[cd])
         record("prefix_sum", f"{g} [{num_win} win, {lanes} lanes]",
                [8, num_win, lanes],
                lambda: kernels.prefix_sum(g, lt),
@@ -1472,6 +1475,10 @@ def run_profiler(dev, log2: int, apps):
 
 # the device kernels of the inversions, by name in the profiler's trace
 INVERSION_KERNELS = ("inv_kernel", "mont_pow_kernel", "batch_inv_rows_kernel")
+# the tree's and the add's kernels, whose records (the wrapper's time) the
+# host's time per call can hide on G1
+TREE_ADD_KERNELS = ("tree_sum_kernel", "add_points_kernel",
+                  "add_points_pair_kernel")
 
 
 def profile_prove(dev, crs, primary, aux):
@@ -1479,9 +1486,10 @@ def profile_prove(dev, crs, primary, aux):
     its launches per wrapper, one under torch.profiler for the device's
     busy time (the sum over device kernels; tracing slows the host, so the
     idle share is reckoned against the untraced wall time), the kernels
-    that take most of it and the inversions' kernels (device time of a
+    that take most of it, the inversions' kernels (device time of a
     call, which the records of one element cannot show where the
-    wrapper's host time is longer)."""
+    wrapper's host time is longer) and likewise the tree's and the
+    add's."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize(dev)
@@ -1519,7 +1527,10 @@ def profile_prove(dev, crs, primary, aux):
             for e in top],
         "inversion_kernels": [
             {"name": e.key[:80], "calls": e.count, "ms": self_us(e) / 1e3}
-            for e in events if any(k in e.key for k in INVERSION_KERNELS)]}})
+            for e in events if any(k in e.key for k in INVERSION_KERNELS)],
+        "tree_add_kernels": [
+            {"name": e.key[:80], "calls": e.count, "ms": self_us(e) / 1e3}
+            for e in events if any(k in e.key for k in TREE_ADD_KERNELS)]}})
 
 
 # ---------------------------------------------------------------------------

@@ -25,38 +25,32 @@
 //   more than the spread between runs.
 // * tree_sum: tree_reduce keeps only element 0 of a Hillis-Steele suffix
 //   fold, and element 0 is exactly the pairwise tree whose node j at
-//   level l is node j plus node j + 2^(l-1) of the level below (plus the
-//   identity past the end): n - 1 adds and the identity adds, not
-//   n log n (rcb.cuh tree_sum_rows).  Level 0 reads the input, the others
-//   work in place in a scratch buffer, and the last writes each row's
-//   root.  The levels spread over the whole card and meet at a grid-wide
-//   barrier of a cooperative launch (grid.cuh): one block per batch row
-//   meeting at __syncthreads ran 1.3x (G1) and 1.7x (G2) slower on the
-//   H100 (PERF.md).
+//   level l is node j plus node j + 2^l of the level below (plus the
+//   identity past the end): n - 1 adds and the identity adds, not n log n.
+//   Its levels depend on each other, so what bounds it is its critical
+//   path: 11 levels of adds on the main path (15 rows of 2,048 lane
+//   totals), fewer than 1,000 adds live after the fourth.  The design
+//   (rcb.cuh tree_sum_block): subtrees of 2^8 leaves on blocks of 256
+//   threads, each add on a pair (pt_add_pair: 6 rounds of products on G1,
+//   21 on G2, against 12 and 42 on one thread), a subtree's levels in
+//   shared memory between __syncthreads; the last block of a row's
+//   subtrees to finish (a count per group, after a __threadfence) adds
+//   their roots on its own pairs.  No cooperative launch and no grid-wide
+//   barrier: the rows end on their own.  Measured against it on the H100
+//   (PERF.md, scripts/tree_designs.py): the parent's eleven levels of
+//   one-thread adds meeting at grid-wide barriers (grid.cuh), 2.3-3.1x
+//   slower; the same levels with pair adds, 1.4-1.9x; subtrees of 2^5 to
+//   2^7 leaves, slower on every curve and group; the levels of at most 8
+//   adds (or the tiers past the first) on one warp an add (lanes.cuh
+//   pt_add), 11-14 % faster on G1 (5-8 us), slower on BN254a's G2, and
+//   spilling on BN254b's G2 with a second add body in the kernel.
 #include <cuda_runtime.h>
 #include "grid.cuh"
 #include "curve.cuh"
 
 namespace {
 
-using levels::GridSched;
 using levels::kThreads;
-
-// the value of the other thread of a pair (lanes 2k, 2k + 1 of a warp)
-struct ShflPair {
-  template <class M>
-  static __device__ __forceinline__ Fp<M> other(const Fp<M>& a) {
-    Fp<M> r;
-#pragma unroll
-    for (int k = 0; k < 8; k++)
-      r.v[k] = __shfl_xor_sync(0xffffffffu, a.v[k], 1);
-    return r;
-  }
-  template <class M>
-  static __device__ __forceinline__ Fp2<M> other(const Fp2<M>& a) {
-    return {other(a.c0), other(a.c1)};
-  }
-};
 
 // thread 2 i + h of the grid is half h of chain i; a warp's threads stay
 // to the end (they shuffle), those past the last chain repeat it unstored
@@ -76,11 +70,21 @@ lane_row_sums_kernel(PointPtrs p, size_t batch, size_t n, size_t width,
 }
 
 template <class C>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(1 << kTreeLog)
 tree_sum_kernel(PointPtrs in, PointPtrs scratch, PointPtrs out, size_t batch,
                 size_t n, unsigned* count) {
-  GridSched sched{count, 0u};
-  tree_sum_rows<C>(in, scratch, out, batch, n, sched);
+  constexpr int kSlots = 1 << (kTreeLog - 1);
+  constexpr int kComps = 3 * (int)(sizeof(C) / 32);
+  __shared__ uint32_t smem[kComps * 8 * kSlots];
+  __shared__ unsigned flag;
+  PointPtrs slots;
+#pragma unroll
+  for (int c = 0; c < 6; c++)
+    slots.c[c] = c < kComps ? smem + c * 8 * kSlots : nullptr;
+  TreeBlock sched{&flag};
+  tree_sum_block<C, ShflPair, kTreeLog>(in, scratch, out, batch, n,
+                                        blockIdx.x, threadIdx.x, slots,
+                                        count, sched);
 }
 
 }  // namespace
@@ -109,16 +113,20 @@ extern "C" int oz_lane_row_sums(int group, const unsigned long long* p,
 }
 
 // out [8, batch]: element 0 of the suffix fold of each row; scratch
-// [8, batch, n]; count: one zeroed word
+// [8, batch, n]; count: batch * ceil(n / 2) zeroed words
 extern "C" int oz_tree_sum(int group, const unsigned long long* p,
                            const unsigned long long* scratch, long long batch,
                            long long n, const unsigned long long* out,
                            void* count, void* stream) {
   if (batch <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
   const int cnt = 3 * group;
-  const size_t items = (size_t)batch * (size_t)((n + 1) / 2);
-  return levels::launch_levels(
-      group == 1 ? tree_sum_kernel<G1Coord> : tree_sum_kernel<G2Coord>, items,
-      make_ptrs(p, cnt), make_ptrs(scratch, cnt), make_ptrs(out, cnt),
-      (size_t)batch, (size_t)n, (unsigned*)count, (cudaStream_t)stream);
+  const TreeShape s = tree_shape<kTreeLog>((size_t)batch, (size_t)n);
+  if (s.blocks > 0x7fffffffu) return (int)cudaErrorInvalidValue;
+  const dim3 g((unsigned)s.blocks), b(1u << kTreeLog);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (group == 1)
+    tree_sum_kernel<G1Coord><<<g, b, 0, st>>>(make_ptrs(p, cnt), make_ptrs(scratch, cnt), make_ptrs(out, cnt), (size_t)batch, (size_t)n, (unsigned*)count);
+  else
+    tree_sum_kernel<G2Coord><<<g, b, 0, st>>>(make_ptrs(p, cnt), make_ptrs(scratch, cnt), make_ptrs(out, cnt), (size_t)batch, (size_t)n, (unsigned*)count);
+  return (int)cudaGetLastError();
 }

@@ -7,12 +7,24 @@
 // add_points.  Bound on this card: integer multiply throughput and
 // registers.  A G1 add is 12 field products (about 1,700 32-bit
 // multiply-adds) for 288 bytes moved; a G2 add three times the products
-// for twice the bytes.  Design: one thread per point, coordinates
-// word-major so loads coalesce, the whole formula in registers with no
-// intermediate in device memory.  The G2 add keeps about a dozen Fp2
-// temporaries (192 words) alive, more than the 255 registers a thread may
-// hold, so the compiler spills some to local memory; that is accepted here.
-//
+// for twice the bytes.  Coordinates word-major so loads coalesce, the
+// whole formula in registers with no intermediate in device memory.
+// * G1: one thread per point (0.71 of its bound, PERF.md).
+// * G2: one thread would keep about a dozen Fp2 temporaries (192 words)
+//   alive, more than the 255 registers a thread may hold, and spill.  So
+//   two threads a point (rcb.cuh add_point_pair, pt_add_pair): each runs
+//   half of every level of the add's products and the pair trades the
+//   results by shuffles, as lane_row_sums does (bucket_kernels.cu), in
+//   180 registers, no spill.  Measured against it on the H100 (PERF.md,
+//   scripts/tree_designs.py): one thread a point (255 registers and a
+//   spill), 1.2x (BN254a) and 1.6x (BN254b) slower; one thread with
+//   pt_add's products in the order that keeps the fewest temporaries
+//   alive, no better; the pair with each thread loading one point and
+//   trading it (208 registers), and blocks of 32 or 64 threads, within
+//   2 %; at most 168 registers (three blocks of 128 an SM), 4-7 % faster
+//   but spilling (44 B on BN254a, 208 B on BN254b).  G1's add stays on
+//   one thread: on a pair it is 16-17 % slower.
+
 // double_points runs a whole doubling chain in one launch: ``times``
 // doublings of each point, the point held in registers throughout, and
 // with ``every_step`` each intermediate [2^j]P written to an output with
@@ -49,6 +61,15 @@ add_points_kernel(PointPtrs p, PointPtrs q, PointPtrs out, size_t n) {
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   store_point(pt_add(load_point<C>(p, n, i), load_point<C>(q, n, i)), out, n, i);
+}
+
+// two threads a point; a warp's threads stay to the end (they shuffle)
+template <class C>
+__global__ void __launch_bounds__(kThreads)
+add_points_pair_kernel(PointPtrs p, PointPtrs q, PointPtrs out, size_t n) {
+  const size_t t = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if ((t & ~(size_t)31) >> 1 >= n) return;       // the whole warp
+  add_point_pair<C, ShflPair>(p, q, out, n, t);
 }
 
 // times = 1: one thread per point
@@ -97,11 +118,12 @@ extern "C" int oz_add_points(int group, const unsigned long long* p,
   if (n <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int cnt = 3 * group;
-  const unsigned g = (unsigned)(((size_t)n + kThreads - 1) / kThreads);
+  const size_t threads = (size_t)n * group;
+  const unsigned g = (unsigned)((threads + kThreads - 1) / kThreads);
   if (group == 1)
     add_points_kernel<G1Coord><<<g, kThreads, 0, s>>>(make_ptrs(p, cnt), make_ptrs(q, cnt), make_ptrs(out, cnt), (size_t)n);
   else
-    add_points_kernel<G2Coord><<<g, kThreads, 0, s>>>(make_ptrs(p, cnt), make_ptrs(q, cnt), make_ptrs(out, cnt), (size_t)n);
+    add_points_pair_kernel<G2Coord><<<g, kThreads, 0, s>>>(make_ptrs(p, cnt), make_ptrs(q, cnt), make_ptrs(out, cnt), (size_t)n);
   return (int)cudaGetLastError();
 }
 

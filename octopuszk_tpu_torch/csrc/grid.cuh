@@ -1,5 +1,5 @@
-// Levels of a reduction separated inside one launch (bucket_kernels.cu,
-// prefix_kernels.cu): a barrier across the blocks of a cooperative launch,
+// Levels of a reduction separated inside one launch (prefix_kernels.cu,
+// table_kernels.cu): a barrier across the blocks of a cooperative launch,
 // the schedules that hand each thread its items of a level, and the
 // launch.  Device code of the CUDA toolchain only (the loops they drive
 // are in rcb.cuh, which also compiles for the host).
@@ -75,7 +75,7 @@ int launch_cooperative(K kernel, size_t items, void** args, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-// The tree and the prefix: kernel(in, scratch, out, batch, n, count) as a
+// The prefix: kernel(in, scratch, out, batch, n, count) as a
 // cooperative launch over the card.
 template <class K>
 int launch_levels(K kernel, size_t items, PointPtrs in, PointPtrs scratch,

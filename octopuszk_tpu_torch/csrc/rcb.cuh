@@ -135,16 +135,33 @@ inline PointPtrs make_ptrs(const unsigned long long* addrs, int count) {
   return p;
 }
 
-template <class M>
+// L2: read through the L2 cache only (ld.global.cg), for words that
+// another block of the same launch wrote: this SM's L1 may hold the line
+// from before the write
+template <bool L2, class M>
+__device__ __forceinline__ Fp<M> fp_load_at(const uint32_t* base,
+                                            size_t stride, size_t i) {
+#if defined(__CUDA_ARCH__)
+  if (L2) {
+    Fp<M> r;
+#pragma unroll
+    for (int k = 0; k < 8; k++) r.v[k] = __ldcg(base + k * stride + i);
+    return r;
+  }
+#endif
+  return fp_load<M>(base, stride, i);
+}
+
+template <bool L2 = false, class M>
 __device__ __forceinline__ void load_coord(Fp<M>& c, const PointPtrs& p,
                                            int ci, size_t n, size_t i) {
-  c = fp_load<M>(p.c[ci], n, i);
+  c = fp_load_at<L2, M>(p.c[ci], n, i);
 }
-template <class M>
+template <bool L2 = false, class M>
 __device__ __forceinline__ void load_coord(Fp2<M>& c, const PointPtrs& p,
                                            int ci, size_t n, size_t i) {
-  c.c0 = fp_load<M>(p.c[2 * ci], n, i);
-  c.c1 = fp_load<M>(p.c[2 * ci + 1], n, i);
+  c.c0 = fp_load_at<L2, M>(p.c[2 * ci], n, i);
+  c.c1 = fp_load_at<L2, M>(p.c[2 * ci + 1], n, i);
 }
 template <class M>
 __device__ __forceinline__ void store_coord(const Fp<M>& c,
@@ -160,13 +177,13 @@ __device__ __forceinline__ void store_coord(const Fp2<M>& c,
   fp_store<M>(p.c[2 * ci + 1], n, i, c.c1);
 }
 
-template <class C>
+template <class C, bool L2 = false>
 __device__ __forceinline__ Pt<C> load_point(const PointPtrs& p, size_t n,
                                             size_t i) {
   Pt<C> r;
-  load_coord(r.x, p, 0, n, i);
-  load_coord(r.y, p, 1, n, i);
-  load_coord(r.z, p, 2, n, i);
+  load_coord<L2>(r.x, p, 0, n, i);
+  load_coord<L2>(r.y, p, 1, n, i);
+  load_coord<L2>(r.z, p, 2, n, i);
   return r;
 }
 
@@ -243,6 +260,48 @@ __device__ __forceinline__ Pt<C> pt_identity() {
   return r;
 }
 
+#if defined(__CUDACC__)
+// X of pt_add_pair on the card: the value of the other thread of a pair
+// (lanes 2k, 2k + 1 of a warp; every lane of the warp calls it)
+struct ShflPair {
+  template <class M>
+  static __device__ __forceinline__ Fp<M> other(const Fp<M>& a) {
+    Fp<M> r;
+#pragma unroll
+    for (int k = 0; k < 8; k++)
+      r.v[k] = __shfl_xor_sync(0xffffffffu, a.v[k], 1);
+    return r;
+  }
+  template <class M>
+  static __device__ __forceinline__ Fp2<M> other(const Fp2<M>& a) {
+    return {other(a.c0), other(a.c1)};
+  }
+};
+#endif
+
+// Kernel (d) add_points on the two threads of a pair: thread t (h = t & 1)
+// runs its half of P + Q for point t / 2 of the batch of n; a thread past
+// the end repeats the last point and stores nothing.  Both threads load
+// both points (the second read of a word hits the cache); thread 0
+// stores X and Z, thread 1 Y.
+template <class C, class X>
+__device__ __forceinline__ void add_point_pair(const PointPtrs& p,
+                                               const PointPtrs& q,
+                                               const PointPtrs& out,
+                                               size_t n, size_t t) {
+  const bool h = t & 1, live = (t >> 1) < n;
+  const size_t i = live ? t >> 1 : n - 1;
+  const Pt<C> r = pt_add_pair<C, X>(load_point<C>(p, n, i),
+                                    load_point<C>(q, n, i), h);
+  if (!live) return;
+  if (h) {
+    store_coord(r.y, out, 1, n, i);
+  } else {
+    store_coord(r.x, out, 0, n, i);
+    store_coord(r.z, out, 2, n, i);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // The loops of ops/msm.py and curves/group_ops.py that run as one launch
 // each.  Every function keeps the adds of the loop it stands for, with the
@@ -274,20 +333,6 @@ __device__ __forceinline__ Pt<C> lane_row_sum_pair(const PointPtrs& p,
   return acc;
 }
 
-// One node of the pairwise tree that gives element 0 of group_ops.
-// tree_reduce's Hillis-Steele suffix fold: at level l (h = 2^l) node j, a
-// multiple of 2h, is node j plus node j + h of level l - 1, or plus the
-// identity where j + h >= n.
-template <class C>
-__device__ __forceinline__ Pt<C> tree_node(const PointPtrs& src,
-                                           size_t stride, size_t at,
-                                           size_t n, size_t j, size_t h) {
-  const Pt<C> a = load_point<C>(src, stride, at + j);
-  const Pt<C> b = j + h < n ? load_point<C>(src, stride, at + j + h)
-                            : pt_identity<C>();
-  return pt_add(a, b);
-}
-
 // One element of a Hillis-Steele inclusive prefix level (msm._hs_prefix):
 // dst[j] = src[j] + (src[j - d] where j >= d, else the identity).
 template <class C>
@@ -313,42 +358,168 @@ __device__ __forceinline__ int ceil_log2(size_t n) {
   return l;
 }
 
-// group_ops.tree_reduce over each row of the [8, batch, n] batch ``in``
-// as the pairwise tree of tree_node: level 0 reads ``in``, the others
-// work in place in ``scratch`` (shaped as ``in``), the last writes each
-// row's root to ``out`` [8, batch].  ``sched.range(rows, per_row)`` gives
-// the calling thread its items of a level, ``sched.barrier()`` separates
-// the levels.  A level never writes what another thread of it reads: node
-// j reads j and j + h and writes j, all multiples of 2h but j + h.
-template <class C, class Sched>
-__device__ __forceinline__ void tree_sum_rows(const PointPtrs& in,
-                                              const PointPtrs& scratch,
-                                              const PointPtrs& out,
-                                              size_t batch, size_t n,
-                                              Sched& sched) {
+// group_ops.tree_reduce over each row of the [8, batch, n] batch ``in``:
+// element 0 of its Hillis-Steele suffix fold, which is the pairwise tree
+// whose node j at level l (j a multiple of 2^(l+1)) is node j plus node j
+// + 2^l of level l - 1 (the leaves at level -1), or plus the identity
+// where j + 2^l >= n: n - 1 adds and the identity adds, in that operand
+// order (kernels.tree_sum_plain).  The 2^K nodes of a level that start at
+// a multiple of 2^K times their spacing make one node K levels up and
+// need nothing else, so the L = ceil(log2 n) levels run in tiers of K:
+// tier t reduces groups of up to 2^K nodes spaced u = 2^(K t) apart (tier
+// 0: the leaves) on the 2^K threads of one block, each add on a pair
+// (pt_add_pair, X its exchange), the nodes in shared memory between the
+// block's barriers.  A group's root goes to ``scratch`` at its position
+// (to ``out`` [8, batch] from the last tier); the block that brings a
+// parent group's count of arrived groups to its number of groups goes on
+// with that group at tier t + 1, the others end.  Rows shorter than 2^K
+// make one subtree of 2^L leaves each, 2^K / 2^L rows a block; n = 1 is a
+// copy, one row a thread.
+
+// the tier of tree_sum_kernel (bucket_kernels.cu): blocks of 2^kTreeLog
+// threads, subtrees of as many leaves (chosen by measurement, PERF.md)
+constexpr int kTreeLog = 8;
+
+// the blocks of a launch, and how rows map on them
+struct TreeShape {
+  int levels;        // L
+  int first;         // levels of tier 0: min(K, L)
+  size_t groups;     // tier-0 groups a row
+  size_t per_block;  // tier-0 groups a block
+  size_t blocks;
+};
+
+template <int K>
+__host__ __device__ inline TreeShape tree_shape(size_t batch, size_t n) {
+  TreeShape s;
+  s.levels = 0;
+  while (((size_t)1 << s.levels) < n) s.levels++;
+  s.first = s.levels < K ? s.levels : K;
+  s.groups = (n + ((size_t)1 << s.first) - 1) >> s.first;
+  s.per_block = (size_t)1 << (K - s.first);
+  s.blocks = (batch * s.groups + s.per_block - 1) / s.per_block;
+  return s;
+}
+
+// Level m of a tier on the 2^levels threads of a group (lt: this thread's
+// index among them; pair q = lt / 2, half h = lt & 1).  Input i of the
+// tier is node base + i u of the row at ``at`` in ``src``, absent at or
+// past n.  Pair q < 2^(levels - 1 - m) makes node i = q 2^(m+1) from
+// nodes i and i + 2^m of level m - 1 (the identity where i + 2^m is
+// absent): from ``src`` at m = 0, else from slots i / 2 and (i + 2^m) / 2
+// of ``slots`` (``nslots`` slots, the group's from ``slot0``), and leaves
+// it in slot i / 2 (the last level's, the root, in slot 0).  A pair whose
+// node is absent adds slot 0 to the identity and keeps nothing; a warp
+// none of whose pairs has a node skips the level (the others run whole:
+// they shuffle).  ``src`` is read through L2: past the first tier other
+// blocks wrote it.
+template <class C, class X>
+__device__ __forceinline__ void tree_pair_level(
+    const PointPtrs& src, size_t stride, size_t at, size_t n, size_t base,
+    size_t u, int levels, int m, unsigned lt, const PointPtrs& slots,
+    size_t nslots, size_t slot0) {
+  const unsigned q = lt >> 1, wq = (lt & ~31u) >> 1;
+  const unsigned pairs = 1u << (levels - 1 - m);
+  if (wq >= pairs) return;                      // the whole warp
+  const bool h = lt & 1;
+  const size_t count = (n - base + u - 1) / u;
+  const size_t i = (size_t)q << (m + 1), j = i + ((size_t)1 << m);
+  const bool has = q < pairs && i < count, two = has && j < count;
+  Pt<C> a, b;
+  if (m == 0) {
+    a = load_point<C, true>(src, stride, at + base + (has ? i : 0) * u);
+    b = two ? load_point<C, true>(src, stride, at + base + j * u)
+            : pt_identity<C>();
+  } else {
+    a = load_point<C>(slots, nslots, slot0 + (has ? i >> 1 : 0));
+    b = two ? load_point<C>(slots, nslots, slot0 + (j >> 1))
+            : pt_identity<C>();
+  }
+  const Pt<C> r = pt_add_pair<C, X>(a, b, h);
+  if (has && !h) store_point(r, slots, nslots, slot0 + (i >> 1));
+}
+
+#if defined(__CUDACC__)
+// tree_sum_block's barrier and count of arrivals on the card: thread 0
+// fences its root's store before it counts, and the last to count fences
+// before its block reads the others' roots (threadfence reduction)
+struct TreeBlock {
+  unsigned* flag;                         // one word of shared memory
+  __device__ void sync() const { __syncthreads(); }
+  __device__ bool arrive(unsigned* c, unsigned groups) {
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      __threadfence();
+      const bool last = atomicAdd(c, 1u) + 1 == groups;
+      if (last) __threadfence();
+      *flag = last;
+    }
+    __syncthreads();
+    return *flag;
+  }
+};
+#endif
+
+// Block ``blk`` of tree_shape<K>(batch, n).blocks, run by its thread t of
+// 2^K.  ``slots``: 2^(K-1) points of shared memory; ``count``: zeroed
+// words, one per row for each group of every tier past the first (at
+// most ceil(n / 2) a row for K >= 2).  ``sched.sync()`` is the block's
+// barrier; ``sched.arrive(c, groups)`` (called by every thread after
+// thread 0 stored its group's root) counts the block's arrival at word c
+// and tells every thread whether it brought it to ``groups``.
+template <class C, class X, int K, class B>
+__device__ __forceinline__ void tree_sum_block(
+    const PointPtrs& in, const PointPtrs& scratch, const PointPtrs& out,
+    size_t batch, size_t n, size_t blk, unsigned t, const PointPtrs& slots,
+    unsigned* count, B& sched) {
+  static_assert(K >= 2, "a tier of at least two levels");
+  const TreeShape s = tree_shape<K>(batch, n);
   const size_t stride = batch * n;
-  const int levels = ceil_log2(n);
-  if (levels == 0) {
-    const ItemRange it = sched.range(batch, 1);
-    for (size_t i = it.first; i < it.end; i += it.step)
-      store_point(load_point<C>(in, stride, i * n), out, batch, i);
+  if (s.levels == 0) {
+    const size_t row = (blk << K) + t;
+    if (row < batch)
+      store_point(load_point<C>(in, batch, row), out, batch, row);
     return;
   }
+  const unsigned lt = t & ((1u << s.first) - 1);
+  const size_t total = batch * s.groups;
+  size_t sub = blk * s.per_block + (t >> s.first);
+  const bool live = sub < total;
+  if (!live) sub = total - 1;
+  const size_t b = sub / s.groups;
+  const size_t slot0 = (size_t)(t >> s.first) << (s.first - 1);
+  size_t g = sub - b * s.groups, u = 1, counted = 0;
 #pragma unroll 1
-  for (int l = 0; l < levels; l++) {
-    const size_t h = (size_t)1 << l;
-    const size_t nodes = (n + 2 * h - 1) / (2 * h);
-    const bool last = l + 1 == levels;           // one node per row
-    const PointPtrs& src = l == 0 ? in : scratch;
-    const ItemRange it = sched.range(batch, nodes);
+  for (int done = 0;; done += K) {
+    const int levels = s.levels - done < K ? s.levels - done : K;
+    const size_t base = g * (u << K);
+    const size_t nslots = (size_t)1 << (K - 1);
 #pragma unroll 1
-    for (size_t i = it.first; i < it.end; i += it.step) {
-      const size_t b = i / nodes, j = 2 * h * (i - b * nodes);
-      const Pt<C> node = tree_node<C>(src, stride, b * n, n, j, h);
-      if (last) store_point(node, out, batch, b);
-      else store_point(node, scratch, stride, b * n + j);
+    for (int m = 0; m < levels; m++) {
+      tree_pair_level<C, X>(done ? scratch : in, stride, b * n, n, base, u,
+                            levels, m, lt, slots, nslots, slot0);
+      if (m + 1 < levels) sched.sync();
     }
-    if (!last) sched.barrier();
+    // the group's root, in its slot 0 from its first thread
+    if (done + levels == s.levels) {
+      if (live && lt == 0)
+        store_point(load_point<C>(slots, nslots, slot0), out, batch, b);
+      return;
+    }
+    // here L > K: one group a block
+    if (t == 0)
+      store_point(load_point<C>(slots, nslots, 0), scratch, stride,
+                  b * n + base);
+    const size_t groups = (n + (u << K) - 1) / (u << K);
+    const size_t parent = g >> K;
+    const size_t sibs = groups - (parent << K);
+    if (!sched.arrive(count + (counted + parent) * batch + b,
+                      (unsigned)(sibs < ((size_t)1 << K) ? sibs
+                                                         : (size_t)1 << K)))
+      return;
+    counted += (groups + ((size_t)1 << K) - 1) >> K;
+    g = parent;
+    u <<= K;
   }
 }
 

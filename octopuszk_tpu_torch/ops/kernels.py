@@ -1059,7 +1059,10 @@ def _levels_launch(group_name, p, name, out_shape):
     if batch == 0:
         return rebuild_coords(outs, cd)
     scratch = _points_out(comps, comps[0].shape)
-    count = torch.zeros(1, dtype=torch.int32, device=comps[0].device)
+    # the tree's counts of arrived subtrees (at most ceil(n / 2) a row),
+    # the prefix's one grid-barrier word
+    words = batch * ((n + 1) // 2) if name == "tree_sum" else 1
+    count = torch.zeros(words, dtype=torch.int32, device=comps[0].device)
     fn, curve = _group_entry(group_name, "oz_" + name)
     rc = _launch(fn, comps[0].device, cd, _addr_array(comps),
                  _addr_array(scratch), batch, n, _addr_array(outs),
@@ -1073,8 +1076,9 @@ def tree_sum(group_name: str, p):
     """Sum along the last axis in one launch: points [8, *batch, n] ->
     [8, *batch], element 0 of the Hillis-Steele suffix fold of
     group_ops.tree_reduce, computed as the pairwise tree that gives it
-    (n - 1 adds and the adds with the identity past the end); the levels
-    spread over the card and meet at a grid-wide barrier."""
+    (n - 1 adds and the adds with the identity past the end): subtrees of
+    128 leaves on blocks, each add on two threads, the roots of a row's
+    subtrees added by the last of its blocks to finish."""
     return _levels_launch(group_name, p, "tree_sum", lambda s: s[:-1])
 
 

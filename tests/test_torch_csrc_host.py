@@ -50,6 +50,7 @@ HARNESS = r"""
 #define __forceinline__ inline
 #define __noinline__
 #include <condition_variable>
+#include <memory>
 #include <mutex>
 #include <thread>
 #include <vector>
@@ -329,20 +330,17 @@ static PointPtrs ptrs(uint32_t* const* a, int group) {
   return p;
 }
 
-// The two threads of a pair (rcb.cuh pt_add_pair) as two host threads
-// that meet at every exchange: each writes its value, waits for the other,
-// reads the other's and waits again before the slots are reused.
-struct HostPair {
-  static thread_local int me;
-  static uint32_t slot[2][8];
-  static std::mutex mu;
-  static std::condition_variable cv;
-  static int arrived;
-  static unsigned long phase;
-  static void meet() {
+// The threads of a block as host threads that meet at every barrier.
+struct HostBarrier {
+  int parties;
+  int arrived = 0;
+  unsigned long phase = 0;
+  std::mutex mu;
+  std::condition_variable cv;
+  void barrier() {
     std::unique_lock<std::mutex> lk(mu);
     const unsigned long ph = phase;
-    if (++arrived == 2) {
+    if (++arrived == parties) {
       arrived = 0;
       phase++;
       cv.notify_all();
@@ -350,12 +348,27 @@ struct HostPair {
       cv.wait(lk, [&] { return phase != ph; });
     }
   }
+};
+
+// The two threads of a pair (rcb.cuh pt_add_pair) as two host threads
+// that meet at every exchange: each writes its value to its pair's slots,
+// waits for the other, reads the other's and waits again before the
+// slots are reused.  A host thread names its half (``me``) and its pair's
+// slots (``at``), so several pairs can run at once.
+struct PairSlots {
+  uint32_t v[2][8];
+  HostBarrier meet{2};
+};
+
+struct HostPair {
+  static thread_local int me;
+  static thread_local PairSlots* at;
   template <int W>
   static void swap_words(const uint32_t* mine, uint32_t* theirs) {
-    for (int k = 0; k < W; k++) slot[me][k] = mine[k];
-    meet();
-    for (int k = 0; k < W; k++) theirs[k] = slot[1 - me][k];
-    meet();
+    for (int k = 0; k < W; k++) at->v[me][k] = mine[k];
+    at->meet.barrier();
+    for (int k = 0; k < W; k++) theirs[k] = at->v[1 - me][k];
+    at->meet.barrier();
   }
   template <class M>
   static Fp<M> other(const Fp<M>& a) {
@@ -369,11 +382,21 @@ struct HostPair {
   }
 };
 thread_local int HostPair::me = 0;
-uint32_t HostPair::slot[2][8];
-std::mutex HostPair::mu;
-std::condition_variable HostPair::cv;
-int HostPair::arrived = 0;
-unsigned long HostPair::phase = 0;
+thread_local PairSlots* HostPair::at = nullptr;
+
+// the two halves of pair work fn(h) on two host threads
+template <class Fn>
+static void run_pair(Fn fn) {
+  PairSlots slots;
+  auto half = [&](int h) {
+    HostPair::me = h;
+    HostPair::at = &slots;
+    fn(h);
+  };
+  std::thread other(half, 1);
+  half(0);
+  other.join();
+}
 
 // one thread: every item of a level in order, no barrier needed; one block
 // of one thread
@@ -407,19 +430,13 @@ static void chain(int op, int group, uint32_t* const* a, uint32_t* const* b,
     const size_t rows = (n + x - 1) / x;
     for (long i = 0; i < batch * x; i++) {
       Pt<C> acc[2];
-      auto half = [&](int h) {
-        HostPair::me = h;
+      run_pair([&](int h) {
         acc[h] = lane_row_sum_pair<C, HostPair>(pa, batch * n, (i / x) * n,
                                                 n, i % x, rows, h != 0);
-      };
-      std::thread other(half, 1);
-      half(0);
-      other.join();
+      });
       store_point(acc[0], po, batch * x, i);
       if (!pt_equal(acc[0], acc[1])) store_point(Pt<C>{}, po, batch * x, i);
     }
-  } else if (op == 2) {
-    tree_sum_rows<C>(pa, ptrs(b, group), po, batch, n, sched);
   } else if (op == 3) {
     prefix_sum_rows<C>(pa, ptrs(b, group), po, batch, n, sched);
   } else if (op == 4) {
@@ -450,25 +467,87 @@ struct HostBlock {
   void barrier() {}
 };
 
-// The threads of a block as host threads that meet at every barrier.
-struct HostBarrier {
-  int parties;
-  int arrived = 0;
-  unsigned long phase = 0;
-  std::mutex mu;
-  std::condition_variable cv;
-  void barrier() {
-    std::unique_lock<std::mutex> lk(mu);
-    const unsigned long ph = phase;
-    if (++arrived == parties) {
-      arrived = 0;
-      phase++;
-      cv.notify_all();
-    } else {
-      cv.wait(lk, [&] { return phase != ph; });
-    }
+// tree_sum_block's barrier and count of arrivals for a block whose
+// threads are host threads (``tid``: the calling thread's index)
+struct HostTreeBlock {
+  HostBarrier bar;
+  bool flag = false;
+  static thread_local unsigned tid;
+  void sync() { bar.barrier(); }
+  bool arrive(unsigned* c, unsigned groups) {
+    bar.barrier();
+    if (tid == 0) flag = ++*c == groups;
+    bar.barrier();
+    return flag;
   }
 };
+thread_local unsigned HostTreeBlock::tid = 0;
+
+// the blocks of tree_sum_block<K> one after the other (``reverse``: last
+// first, so the first group of a parent arrives last), each block's 2^K
+// threads as host threads
+template <class C, int K>
+static void tree_blocks(int group, uint32_t* const* a, uint32_t* const* b,
+                        uint32_t* const* out, long batch, long n,
+                        bool reverse) {
+  const TreeShape s = tree_shape<K>(batch, n);
+  const int comps = 3 * coord_dim(group);
+  const size_t nslots = (size_t)1 << (K - 1);
+  std::vector<uint32_t> smem(comps * 8 * nslots);
+  PointPtrs slots;
+  for (int c = 0; c < 6; c++)
+    slots.c[c] = c < comps ? smem.data() + c * 8 * nslots : nullptr;
+  std::vector<unsigned> count(batch * ((n + 1) / 2), 0u);
+  const PointPtrs pa = ptrs(a, group), pb = ptrs(b, group),
+                  po = ptrs(out, group);
+  for (size_t k = 0; k < s.blocks; k++) {
+    const size_t blk = reverse ? s.blocks - 1 - k : k;
+    HostTreeBlock sched{HostBarrier{1 << K}};
+    std::unique_ptr<PairSlots[]> pairs(new PairSlots[1 << (K - 1)]);
+    std::vector<std::thread> threads;
+    for (unsigned t = 0; t < (1u << K); t++)
+      threads.emplace_back([&, t] {
+        HostPair::me = t & 1;
+        HostPair::at = &pairs[t >> 1];
+        HostTreeBlock::tid = t;
+        tree_sum_block<C, HostPair, K>(pa, pb, po, batch, n, blk, t, slots,
+                                       count.data(), sched);
+      });
+    for (std::thread& th : threads) th.join();
+  }
+}
+
+// the pairwise tree over each row of a = points [batch, n] (b: scratch
+// shaped as a, out: [batch]) in tiers of 2^k, k = 2 or the kernel's
+extern "C" void tree_op(int group, int k, int reverse, uint32_t* const* a,
+                        uint32_t* const* b, uint32_t* const* out, long batch,
+                        long n) {
+  with_group(group, [&](auto c) {
+    if (k == 2)
+      tree_blocks<decltype(c), 2>(group, a, b, out, batch, n, reverse != 0);
+    else
+      tree_blocks<decltype(c), kTreeLog>(group, a, b, out, batch, n,
+                                         reverse != 0);
+  });
+}
+
+extern "C" int tree_log() { return kTreeLog; }
+
+// add_point_pair over a batch of n: the grid's threads 0 .. ``threads``
+// (past 2 n: the warp's threads past the end) in pairs, one pair at a time
+extern "C" void add_pair_op(int group, uint32_t* const* p,
+                            uint32_t* const* q, uint32_t* const* out, long n,
+                            long threads) {
+  with_group(group, [&](auto c) {
+    typedef decltype(c) C;
+    const PointPtrs pp = ptrs(p, group), pq = ptrs(q, group),
+                    po = ptrs(out, group);
+    for (long t = 0; t < threads; t += 2)
+      run_pair([&](int h) {
+        add_point_pair<C, HostPair>(pp, pq, po, n, t + h);
+      });
+  });
+}
 
 // the batch inversion's blocks of T lanes (4 or the kernel's 128), one
 // after the other, each on T host threads
@@ -768,12 +847,26 @@ def _chain(host_lib, op, gname, a, b, out_shape, batch, n, x=0, y=0):
     return outs
 
 
+def _tree(host_lib, gname, pts, batch, n, k, reverse=False):
+    """rcb.cuh tree_sum_block over rows [batch, n] in tiers of 2^k, its
+    blocks in turn (``reverse``: last first), each block's threads as host
+    threads and its pairs exchanging through ``HostPair``."""
+    fa = _flat(pts)
+    scratch = [torch.empty_like(t) for t in fa]
+    outs = [torch.empty((8, batch), dtype=torch.int32) for _ in fa]
+    host_lib.tree_op(GROUP_IDS[gname], k, int(reverse), _ptrs(fa),
+                     _ptrs(scratch), _ptrs(outs), ctypes.c_long(batch),
+                     ctypes.c_long(n))
+    return outs
+
+
 @pytest.mark.parametrize("gname", sorted(GROUP_IDS))
 def test_point_chains(host_lib, gname):
     """The window table round by round (every round across the grid, two
     on one block first, all on one block), the lane row sums, the pairwise
-    tree (with its adds of the identity at n = 13, none at n = 8, a copy at
-    n = 1), the Hillis-Steele prefix through two buffers and the window
+    tree on emulated blocks in tiers of 2^2 and of the kernel's 2^7 leaves
+    (with its adds of the identity at n = 13, none at n = 8, a copy at n =
+    1), the Hillis-Steele prefix through two buffers and the window
     combine on emulated warps (two rows), against the plain versions'
     loops."""
     from octopuszk_tpu_torch.curves import group_ops
@@ -804,9 +897,11 @@ def test_point_chains(host_lib, gname):
     for n in (13, 8, 1):
         sub = group_ops._map_coords(rows, lambda c: c[..., :n].contiguous())
         scratch = group_ops._map_coords(sub, torch.empty_like)
-        got = _chain(host_lib, 2, gname, sub, scratch, (8, 2), 2, n)
         want = kernels.tree_sum_plain(gname, sub)
-        assert all(torch.equal(x, y) for x, y in zip(got, _flat(want))), n
+        for k in (2, host_lib.tree_log()):
+            got = _tree(host_lib, gname, sub, 2, n, k)
+            assert all(torch.equal(x, y)
+                       for x, y in zip(got, _flat(want))), (n, k)
         got = _chain(host_lib, 3, gname, sub, scratch, (8, 2, n), 2, n)
         want = kernels.prefix_sum_plain(gname, sub)
         assert all(torch.equal(x, y) for x, y in zip(got, _flat(want))), n
@@ -817,19 +912,59 @@ def test_point_chains(host_lib, gname):
     assert all(torch.equal(x, y) for x, y in zip(got, _flat(want)))
 
 
-@pytest.mark.parametrize("kind", ["double_chain", "row_sums"])
+@pytest.mark.parametrize("kind", ["double_chain", "row_sums", "tree",
+                                  "pair_add"])
 @pytest.mark.parametrize("gname", sorted(GROUP_IDS))
 def test_warp_chains(host_lib, gname, kind):
     """Kernel (e)'s doubling chain on one emulated warp per point (times =
     1, 4 and the Abel sum's 17, every step kept and not; three points, the
-    identity among them) and the row loop of ``lane_row_sums`` (two batch
+    identity among them); the row loop of ``lane_row_sums`` (two batch
     rows of n = 11 in 4 lanes of 3 rows, so the last lane adds the
     identity; an identity point, and a point followed by its inverse so a
-    lane's sum passes through the identity), against the plain versions."""
+    lane's sum passes through the identity); the tree of ``tree_sum`` on
+    emulated blocks (tiers of 2^2 at n = 2^2 + 5 and 2^4 + 5, three
+    tiers, and of the kernel's 2^7 at n = 2^7 + 5, so a row spans two
+    subtrees and the last adds the identity; batch 1 and 2; blocks in
+    order and last first); and kernel (d)'s G2 add on two threads a point
+    (``add_point_pair``: 20 points, the identity, P + P and P + (-P) among
+    them, and the warp's threads past the end), against the plain
+    versions."""
     from octopuszk_tpu_torch.curves import group_ops
     g = _group(gname)
     rng = random.Random(6)
-    if kind == "double_chain":
+    if kind in ("tree", "pair_add"):
+        host = [g.host.mul(g.generator_affine, rng.randrange(1, 1 << 64))
+                for _ in range(20)]
+        host[3] = None
+        host[7] = g.host.neg(host[6])
+    if kind == "tree":
+        k_kernel = host_lib.tree_log()
+        for k, n in ((2, 9), (2, 21), (k_kernel, (1 << k_kernel) + 5)):
+            for batch in (1, 2):
+                leaves = (host * (-(-batch * n // len(host))))[:batch * n]
+                pts = group_ops._map_coords(
+                    g.points_to_device(leaves, "cpu"),
+                    lambda c: c.reshape(8, batch, n).contiguous())
+                want = _flat(kernels.tree_sum_plain(gname, pts))
+                for reverse in (False, True):
+                    got = _tree(host_lib, gname, pts, batch, n, k, reverse)
+                    assert all(torch.equal(x, y) for x, y in zip(got, want)), \
+                        (k, n, batch, reverse)
+    elif kind == "pair_add":
+        qs = [host[(i + 5) % 20] for i in range(20)]
+        qs[1] = host[1]                            # P + P
+        qs[2] = g.host.neg(host[2])                # P + (-P)
+        qs[4] = None                               # P + 0
+        p = g.points_to_device(host, "cpu")
+        q = g.points_to_device(qs, "cpu")
+        want = _flat(kernels.add_points_plain(gname, p, q))
+        fp_, fq_ = _flat(p), _flat(q)
+        outs = [torch.zeros_like(t) for t in fp_]
+        host_lib.add_pair_op(GROUP_IDS[gname], _ptrs(fp_), _ptrs(fq_),
+                             _ptrs(outs), ctypes.c_long(20),
+                             ctypes.c_long(64))
+        assert all(torch.equal(x, y) for x, y in zip(outs, want))
+    elif kind == "double_chain":
         host = [g.host.mul(g.generator_affine, rng.randrange(1, 1 << 64)),
                 None,
                 g.host.mul(g.generator_affine, rng.randrange(1, 1 << 64))]
