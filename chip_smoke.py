@@ -102,7 +102,8 @@ line holds ptxas's registers and spills for every kernel and unit.
 Abel sum's, the window table's; the window combine's is now inside
 ``combine_windows``), timed per chain: one launch each.  The records of
 chains (``double_points``, ``lane_row_sums``, ``tree_sum``,
-``combine_windows``, ``mont_pow``) carry ``critical_path_rounds`` beside
+``prefix_sum``, ``combine_windows``, ``mont_pow``) carry
+``critical_path_rounds`` beside
 the operations bound:
 the dependent rounds of field products on one chain's path (one product a
 round on a thread, up to four on a warp); ``inv`` the divsteps, matrix
@@ -111,7 +112,9 @@ updates and products of its slowest element.  The chains of
 ``inv``, ``batch_inv_rows``, ``window_table``, ``lane_row_sums``,
 ``tree_sum``, ``prefix_sum``, ``combine_windows``) have records at the
 main path's shapes (``combine_windows`` also at four accumulators, one
-warp each), and so has ``ntt_block``, which runs every stage of a
+warp each; ``prefix_sum`` also at three short rows of 37, so that a row
+has a tail past its tiles and classes of two lengths), and so has
+``ntt_block``, which runs every stage of a
 sub-transform in one launch: the two 4-step passes of the witness map's
 coset NTT and coset iNTT, and one 2^12 transform.  ``butterfly``, the
 reference's per-stage kernel, keeps its record though no path launches it.
@@ -270,7 +273,8 @@ PROFILER_CURVES = {"zksnark-large": "bn254b"}
 # field products per curve operation (products + those inside mul_b3)
 MONT_MULS = {("add", 1): 12, ("add", 2): 12 * 3 + 2 * 3,
              ("double", 1): 8, ("double", 2): 8 * 3 + 3,
-             ("mixed", 1): 11, ("mixed", 2): 11 * 3 + 2 * 3}
+             ("mixed", 1): 11, ("mixed", 2): 11 * 3 + 2 * 3,
+             ("identity add", 1): 3, ("identity add", 2): 3 * 3}
 # operations of field.cuh's safegcd inversion: a divstep is 23 32-bit
 # instructions in the compiled code (sm_90a SASS of inv_kernel); a batch
 # of 30 divsteps' matrix updates, 90 32 x 32 -> 64-bit multiply-adds,
@@ -286,6 +290,21 @@ WARP_ROUNDS = {("add", 1): 2 + 2, ("add", 2): 5 + 2 + 5,
 # half of each level, and on G2 one of the two products by b3; the tree's
 # levels and lane_row_sums' rows run one such add each)
 PAIR_ROUNDS = {1: 3 + 3, 2: 9 + 3 + 9}
+# products in turn per add of prefix_sum's kernel: one thread an add on G1
+# (pt_add), a pair on G2 (pt_add_pair)
+PREFIX_ROUNDS = {1: MONT_MULS["add", 1], 2: PAIR_ROUNDS[2]}
+
+
+def prefix_mads(cd: int, batch: int, n: int) -> int:
+    """Multiply-adds of prefix_sum's dataflow over [batch, n]: every
+    element of every level an add, those of the identity (element j < 2^l
+    at level l) at the 3 products that make them (rcb.cuh
+    pt_add_identity: X Y, Y^2, Y Z), the others complete."""
+    levels = (n - 1).bit_length()
+    ident = sum(min(1 << lv, n) for lv in range(levels))
+    prods = ((n * levels - ident) * MONT_MULS["add", cd]
+             + ident * MONT_MULS["identity add", cd])
+    return batch * MADS_PER_MONT_MUL * prods
 
 
 def emit(obj):
@@ -770,8 +789,17 @@ def check_kernels(dev, log2: int, int32_rate: float, reps: int,
                lambda: kernels.prefix_sum(g, lt),
                lambda: kernels.prefix_sum_plain(g, lt),
                2 * pt_bytes * num_win * lanes,
-               add_mads * num_win * lanes * levels)
-        del tot, lt
+               prefix_mads(cd, num_win, lanes),
+               critical=levels * PREFIX_ROUNDS[cd])
+        # a row's tail past its tiles, classes of two lengths
+        short = rand_point(gen, cd, (3, 37), dev)
+        record("prefix_sum", f"{g} [3 rows, 37 lanes] (not a main-path "
+               "shape)", [8, 3, 37],
+               lambda: kernels.prefix_sum(g, short),
+               lambda: kernels.prefix_sum_plain(g, short),
+               2 * pt_bytes * 3 * 37, prefix_mads(cd, 3, 37),
+               critical=6 * PREFIX_ROUNDS[cd])
+        del tot, lt, short
         # the main path's one accumulator, and four (one warp each)
         for acc_shape, variant in (
                 ((), f"{g} [{num_win} windows], c = {cwin}"),
@@ -1475,10 +1503,10 @@ def run_profiler(dev, log2: int, apps):
 
 # the device kernels of the inversions, by name in the profiler's trace
 INVERSION_KERNELS = ("inv_kernel", "mont_pow_kernel", "batch_inv_rows_kernel")
-# the tree's and the add's kernels, whose records (the wrapper's time) the
-# host's time per call can hide on G1
+# the tree's, the add's and the prefix's kernels, whose records (the
+# wrapper's time) the host's time per call can hide on G1
 TREE_ADD_KERNELS = ("tree_sum_kernel", "add_points_kernel",
-                  "add_points_pair_kernel")
+                    "add_points_pair_kernel", "prefix_sum_kernel")
 
 
 def profile_prove(dev, crs, primary, aux):

@@ -1,7 +1,8 @@
-// Levels of a reduction separated inside one launch (prefix_kernels.cu,
-// table_kernels.cu): a barrier across the blocks of a cooperative launch,
-// the schedules that hand each thread its items of a level, and the
-// launch.  Device code of the CUDA toolchain only (the loops they drive
+// Levels of a reduction separated inside one launch (table_kernels.cu;
+// the grid-barrier designs of scripts/tree_designs.py and
+// scripts/prefix_designs.py): a barrier across the blocks of a
+// cooperative launch, the schedules that hand each thread its items of a
+// level, and the launch.  Device code of the CUDA toolchain only (the loops they drive
 // are in rcb.cuh, which also compiles for the host).
 #pragma once
 #include <cuda_runtime.h>
@@ -75,7 +76,7 @@ int launch_cooperative(K kernel, size_t items, void** args, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-// The prefix: kernel(in, scratch, out, batch, n, count) as a
+// The designs' levels: kernel(in, scratch, out, batch, n, count) as a
 // cooperative launch over the card.
 template <class K>
 int launch_levels(K kernel, size_t items, PointPtrs in, PointPtrs scratch,

@@ -260,6 +260,25 @@ __device__ __forceinline__ Pt<C> pt_identity() {
   return r;
 }
 
+// pt_add(P, (0, 1, 0)): with X2 = Z2 = 0 and Y2 = 1 its terms are t0 = t2
+// = t5 = 0, t1 = Y1, t3 = X1, t4 = Z1, so the sum is (X1 Y1, Y1^2, Y1 Z1),
+// 3 products of 12.  Every field operation returns the canonical residue,
+// so these are pt_add's words.  On a pair (T = 2) thread h makes what
+// store_part<2> stores from it: X and Z (h = 0), Y (h = 1).
+template <int T, class C>
+__device__ __forceinline__ Pt<C> pt_add_identity(const Pt<C>& p, bool h) {
+  Pt<C> r;
+  if (T == 1) {
+    r.x = mul(p.x, p.y);
+    r.y = mul(p.y, p.y);
+  } else {
+    r.x = mul(choose(h, p.y, p.x), p.y);
+    r.y = r.x;
+  }
+  r.z = mul(p.y, p.z);
+  return r;
+}
+
 #if defined(__CUDACC__)
 // X of pt_add_pair on the card: the value of the other thread of a pair
 // (lanes 2k, 2k + 1 of a warp; every lane of the warp calls it)
@@ -331,19 +350,6 @@ __device__ __forceinline__ Pt<C> lane_row_sum_pair(const PointPtrs& p,
     acc = pt_add_pair<C, X>(acc, q, h);
   }
   return acc;
-}
-
-// One element of a Hillis-Steele inclusive prefix level (msm._hs_prefix):
-// dst[j] = src[j] + (src[j - d] where j >= d, else the identity).
-template <class C>
-__device__ __forceinline__ void prefix_step(const PointPtrs& src,
-                                            const PointPtrs& dst,
-                                            size_t stride, size_t at,
-                                            size_t j, size_t d) {
-  const Pt<C> a = load_point<C>(src, stride, at + j);
-  const Pt<C> b = j >= d ? load_point<C>(src, stride, at + j - d)
-                         : pt_identity<C>();
-  store_point(pt_add(a, b), dst, stride, at + j);
 }
 
 // The items of one level that a thread takes: first, first + step, ...
@@ -524,34 +530,275 @@ __device__ __forceinline__ void tree_sum_block(
 }
 
 // msm._hs_prefix over each row of the [8, batch, n] batch ``in``: level l
-// writes ``out`` where levels - 1 - l is even, else ``scratch``, so that a
-// level never reads what it writes and the last level writes ``out``.
-// ``sched`` as for tree_sum_rows.
-template <class C, class Sched>
-__device__ __forceinline__ void prefix_sum_rows(const PointPtrs& in,
-                                                const PointPtrs& scratch,
-                                                const PointPtrs& out,
-                                                size_t batch, size_t n,
-                                                Sched& sched) {
-  const size_t stride = batch * n;
-  const int levels = ceil_log2(n);
-  const ItemRange it = sched.range(batch, n);
-  if (levels == 0) {
-    for (size_t i = it.first; i < it.end; i += it.step)
-      store_point(load_point<C>(in, stride, i), out, stride, i);
-    return;
+// (l < L = ceil(log2 n)) makes element j of a row pt_add(element j of
+// level l - 1, element j - 2^l of it), the identity in place of the second
+// where j < 2^l; level -1 is ``in``, level L - 1 is ``out``.  Every add of
+// that dataflow runs, the identity's included, with the same operands in
+// the same order, so the words are prefix_sum_plain's (optionally, phase
+// 2's adds of the identity as pt_add_identity, which gives their words).
+//
+// For l >= m, j - 2^l = j (mod 2^m): levels m .. L - 1 never leave a
+// residue class mod 2^m, and each class is a Hillis-Steele scan of its
+// own.  So the levels run in two phases of items, one block an item:
+//  1. levels 0 .. min(m, L) - 1 on tiles of the flattened batch: an item
+//     makes its tile and the 2^m - 1 elements before it (a halo, whose
+//     adds it recomputes: the same adds of the same operands) level by
+//     level, the first from ``in``, the later ones in shared memory, the
+//     last into ``out``, then counts its arrival at each row it touched;
+//  2. levels m .. L - 1 (where L > m) on the classes of a row, 2^clog
+//     consecutive residues an item (as many as one round of the block's
+//     workers takes, at least one): an item waits until every tile of its
+//     row has arrived, then runs the levels likewise, the first from
+//     ``out``, the last into ``out``.
+// A level runs over the item's slots, a slot a worker (one thread:
+// pt_add; or the two threads of a pair: pt_add_pair) and round, from one
+// shared-memory buffer into the other, one barrier a level.  Classes
+// longer than a buffer, and a phase 2 of one level, run on ``out`` in
+// place (``in_place``) from the top down: a slot's operands lie at or
+// below it, so a round's reads precede its writes across a barrier and
+// no later round writes what an earlier one read.  One add in the loop:
+// a second inlined G2 add doubles the kernel's registers.
+
+// the items of a launch for blocks of ``workers`` workers, ``rounds`` of
+// them a tile's first level, and buffers of ``slots`` points (at least
+// rounds x workers + 1)
+struct PrefixShape {
+  size_t batch, n;
+  int levels;       // L
+  int first;        // phase 1's levels: min(m, L)
+  int m;            // phase 2's classes: residues mod 2^m
+  int clog;         // phase 2: 2^clog classes an item
+  size_t halo;      // 2^first - 1
+  size_t tile;      // elements of the flattened batch a tile stores
+  size_t tiles;     // phase-1 items
+  size_t groups;    // phase-2 items a row (0 where L <= m)
+  bool in_place;    // phase 2 on ``out``: 2^clog ceil(n / 2^m) > slots
+  size_t items;     // tiles + batch groups
+};
+
+__host__ __device__ inline PrefixShape prefix_shape(size_t batch, size_t n,
+                                                    int m, size_t workers,
+                                                    size_t rounds,
+                                                    size_t slots) {
+  PrefixShape s;
+  s.batch = batch;
+  s.n = n;
+  s.levels = 0;
+  while (((size_t)1 << s.levels) < n) s.levels++;
+  s.m = m;
+  s.first = s.levels < m ? s.levels : m;
+  s.halo = ((size_t)1 << s.first) - 1;
+  // level 0 makes the tile and all of the halo but its first element
+  s.tile = rounds * workers - (s.first ? s.halo - 1 : 0);
+  s.tiles = (batch * n + s.tile - 1) / s.tile;
+  s.clog = 0;
+  s.groups = 0;
+  s.in_place = false;
+  if (s.levels > m) {
+    const size_t len = (n + ((size_t)1 << m) - 1) >> m;  // the longest class
+    while (s.clog < m && (len << (s.clog + 1)) <= workers) s.clog++;
+    s.groups = (size_t)1 << (m - s.clog);
+    s.in_place = (len << s.clog) > slots;
   }
-#pragma unroll 1
-  for (int l = 0; l < levels; l++) {
-    const PointPtrs& dst = ((levels - 1 - l) & 1) ? scratch : out;
-    const PointPtrs& src = l == 0 ? in : (((levels - l) & 1) ? scratch : out);
-#pragma unroll 1
-    for (size_t i = it.first; i < it.end; i += it.step) {
-      const size_t b = i / n;
-      prefix_step<C>(src, dst, stride, b * n, i - b * n, (size_t)1 << l);
+  s.items = s.tiles + batch * s.groups;
+  return s;
+}
+
+#if defined(__CUDACC__)
+// prefix_sum_item's barrier, count of arrivals and wait on the card: a
+// tile's stores fenced before it counts, the count read (and fenced)
+// before the waiting item's loads, which go through L2
+struct PrefixBlock {
+  __device__ void sync() const { __syncthreads(); }
+  __device__ void arrive(unsigned* c, unsigned first, unsigned last) const {
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      __threadfence();
+      for (unsigned b = first; b <= last; b++) atomicAdd(c + b, 1u);
     }
-    if (l + 1 < levels) sched.barrier();
   }
+  __device__ void wait(const unsigned* c, unsigned target) const {
+    if (threadIdx.x == 0) {
+      while (*(const volatile unsigned*)c < target) {
+      }
+      __threadfence();
+    }
+    __syncthreads();
+  }
+};
+#endif
+
+// what thread h of a worker of T threads stores of a sum (a pair: X and Z
+// from h = 0, Y from h = 1)
+template <int T, class C>
+__device__ __forceinline__ void store_part(const Pt<C>& r, const PointPtrs& p,
+                                           size_t stride, size_t i, bool h) {
+  if (T == 1) {
+    store_point(r, p, stride, i);
+  } else if (h) {
+    store_coord(r.y, p, 1, stride, i);
+  } else {
+    store_coord(r.x, p, 0, stride, i);
+    store_coord(r.z, p, 2, stride, i);
+  }
+}
+
+// The library's prefix (prefix_kernels.cu) by coordinate type (D = 1:
+// G1, 2: G2), chosen by measurement (PERF.md, scripts/prefix_designs.py):
+// phase 2's classes mod 2^kLog, kThreads threads a worker, blocks of
+// kBlock threads, kRounds rounds of workers a tile's first level, buffers
+// of kSlots points, at least kMinBlocks blocks an SM (the register cap),
+// phase 2's adds of the identity by pt_add_identity (kIdentity; on G2 it
+// slowed BN254b's loop).
+template <int D>
+struct PrefixConfig;
+template <>
+struct PrefixConfig<1> {
+  static constexpr int kLog = 4, kThreads = 1, kBlock = 128, kRounds = 1,
+                       kSlots = 257, kMinBlocks = 3;
+  static constexpr bool kIdentity = true;
+};
+template <>
+struct PrefixConfig<2> {
+  static constexpr int kLog = 4, kThreads = 2, kBlock = 128, kRounds = 4,
+                       kSlots = 257, kMinBlocks = 2;
+  static constexpr bool kIdentity = false;
+};
+template <class C>
+using PrefixOf = PrefixConfig<(int)(sizeof(C) / 32)>;
+
+// The points of buffer k of an item's shared memory (two buffers of S
+// points, kComps components of 8 words each)
+template <class C, int S>
+__device__ __forceinline__ PointPtrs prefix_buffer(uint32_t* smem, int k) {
+  constexpr int kComps = 3 * (int)(sizeof(C) / 32);
+  PointPtrs p;
+#pragma unroll
+  for (int c = 0; c < 6; c++)
+    p.c[c] = c < kComps ? smem + (size_t)(k * kComps + c) * 8 * S : nullptr;
+  return p;
+}
+
+// Item ``item`` of s (prefix_shape, with S slots; a flattened batch of
+// fewer than 2^32 points) on the ``block`` threads of a block, run by its
+// thread t, T threads a worker (1: pt_add; 2: pt_add_pair with exchange
+// X; a warp's workers take consecutive slots; ID: phase 2's adds of the
+// identity by pt_add_identity, where a warp has no other).  ``smem``: 2 S
+// points; ``count``: s.batch zeroed words, a row's arrived tiles.
+// ``sched``: sync() the block's barrier; arrive(c, first, last) (every
+// thread, after the tile's stores) counts the tile at words first .. last
+// of c; wait(c, target) (every thread) returns once word c has reached
+// target.
+template <class C, class X, int T, int S, bool ID, class B>
+__device__ __forceinline__ void prefix_sum_item(
+    const PointPtrs& in, const PointPtrs& out, const PrefixShape& s,
+    unsigned item, unsigned t, unsigned block, uint32_t* smem,
+    unsigned* count, B& sched) {
+  const unsigned n = (unsigned)s.n, total = (unsigned)(s.batch * s.n);
+  const bool tile = item < s.tiles;
+  // slot i is element base + ((i >> sh) << step) + (i & mask) of the
+  // flattened batch (none at or past lim); the item's slots: [skip, hi)
+  unsigned base, lim, hi, skip = 0, first_row = 0, last_row = 0;
+  int sh = 0, step = 0, l0, l1;
+  if (tile) {
+    const unsigned t0 = item * (unsigned)s.tile;
+    const unsigned end = total - t0 > s.tile ? t0 + (unsigned)s.tile : total;
+    if (s.first == 0) {                       // n = 1: a copy
+      for (unsigned f = t0 + t; f < end; f += block)
+        store_point(load_point<C>(in, total, f), out, total, f);
+      return;
+    }
+    base = t0 - (unsigned)s.halo;           // modulo 2^32 where t0 < halo
+    lim = total;
+    skip = s.halo > t0 ? (unsigned)s.halo - t0 : 0;
+    hi = end - base;
+    l0 = 0;
+    l1 = s.first;
+    first_row = t0 / n;
+    last_row = (end - 1) / n;
+  } else {
+    const unsigned k = item - (unsigned)s.tiles;
+    const unsigned b = k / (unsigned)s.groups;
+    const unsigned r0 = (k - b * (unsigned)s.groups) << s.clog;
+    base = b * n + r0;
+    lim = b * n + n;
+    sh = s.clog;
+    step = s.m;
+    hi = ((n - r0 + (1u << s.m) - 1) >> s.m) << s.clog;
+    l0 = s.m;
+    l1 = s.levels;
+    // every tile that touches row b
+    const unsigned tl = (unsigned)s.tile;
+    sched.wait(count + b, ((b + 1) * n - 1) / tl - b * n / tl + 1);
+  }
+  const unsigned mask = (1u << sh) - 1;
+  // phase 2 on ``out`` in place, a barrier between each round's reads and
+  // its writes: where its classes exceed the slots, or where it has one
+  // level (which reads ``out`` and writes it)
+  const bool on_out = !tile && (s.in_place || l1 - l0 == 1);
+  const unsigned workers = block / T, me = t / T, warp0 = (t & ~31u) / T;
+  const bool h = T == 2 && (t & 1);
+#pragma unroll 1
+  for (int l = l0; l < l1; l++) {
+    // the first level reads the item's input (``in``, or the row's tiles
+    // in ``out``); the others buffer (l - l0 - 1) & 1, which the level
+    // before wrote; the last writes ``out``
+    const bool from_mem = l == l0 || on_out, last = l + 1 == l1;
+    const PointPtrs src = prefix_buffer<C, S>(smem, (l - l0 + 1) & 1);
+    const PointPtrs dst = prefix_buffer<C, S>(smem, (l - l0) & 1);
+    // the operand's distance in slots: element j - 2^l
+    const unsigned dist = 1u << (l - step + sh);
+    const unsigned lo = tile && (2u << l) - 1 > skip ? (2u << l) - 1 : skip;
+    const unsigned cnt = hi - lo, rounds = (cnt + workers - 1) / workers;
+#pragma unroll 1
+    for (unsigned r = 0; r < rounds; r++) {
+      const unsigned idx = r * workers + me;
+      unsigned i = idx < cnt ? hi - 1 - idx : lo;
+      unsigned g = base + ((i >> sh) << step) + (i & mask);
+      const bool live = idx < cnt && g < lim;
+      if (!live) {
+        i = lo;
+        g = base + ((lo >> sh) << step) + (lo & mask);
+      }
+      Pt<C> sum;
+      if (r * workers + warp0 < cnt) {     // a worker of the warp has a slot
+        // the second operand is the identity where j < 2^l: in phase 2,
+        // where i < dist, so for every slot of the warp where its first
+        // worker's is (its slots run down from there)
+        const bool ident = !live || (tile ? g % n < (1u << l) : i < dist);
+        const bool all_ident =
+            ID && !tile && hi - 1 - (r * workers + warp0) < dist;
+        const unsigned gb = g - (1u << l);
+        if (all_ident) {
+          sum = pt_add_identity<T>(from_mem ? load_point<C, true>(out, total, g)
+                                            : load_point<C>(src, S, i),
+                                   h);
+        } else {
+          Pt<C> a, b;
+          if (!from_mem) {
+            a = load_point<C>(src, S, i);
+            b = ident ? pt_identity<C>() : load_point<C>(src, S, i - dist);
+          } else if (tile) {
+            a = load_point<C>(in, total, g);
+            b = ident ? pt_identity<C>() : load_point<C>(in, total, gb);
+          } else {
+            a = load_point<C, true>(out, total, g);
+            b = ident ? pt_identity<C>()
+                      : load_point<C, true>(out, total, gb);
+          }
+          if constexpr (T == 2) sum = pt_add_pair<C, X>(a, b, h);
+          else sum = pt_add(a, b);
+        }
+      }
+      if (on_out) sched.sync();
+      if (live) {
+        if (last || on_out) store_part<T>(sum, out, total, g, h);
+        else store_part<T>(sum, dst, S, i, h);
+      }
+    }
+    if (!last) sched.sync();
+  }
+  if (tile && s.groups) sched.arrive(count, first_row, last_row);
 }
 
 // A fixed-base window table (msm._window_table) round by round.  The

@@ -127,7 +127,7 @@ LIBRARIES = {
 TEST_FIELDS = "fields"
 GATHER_CURVE = "bn254a"
 HEADERS = ("field.cuh", "fp2.cuh", "rcb.cuh", "grid.cuh", "ntt.cuh",
-           "curve.cuh", "lanes.cuh")
+           "curve.cuh", "lanes.cuh", "prefix.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -322,7 +322,7 @@ def _argtypes():
         "oz_combine_windows": [ci, addrs, ll, ci, ci, addrs, vp],
         "oz_lane_row_sums": [ci, addrs, ll, ll, ll, addrs, vp],
         "oz_tree_sum": [ci, addrs, addrs, ll, ll, addrs, vp, vp],
-        "oz_prefix_sum": [ci, addrs, addrs, ll, ll, addrs, vp, vp],
+        "oz_prefix_sum": [ci, addrs, ll, ll, addrs, vp, vp],
         "oz_row_gather": [vp, ll, vp, ll, ci, vp, vp],
     }
 
@@ -1046,26 +1046,28 @@ def prefix_sum_plain(group_name: str, p):
     return _hillis_steele(group_name, p, False)
 
 
-def _levels_launch(group_name, p, name, out_shape):
+def _levels_launch(group_name, p, name):
     from octopuszk_tpu_torch.curves.group_ops import rebuild_coords
     cd, (comps,) = _point_operands(group_name, p)
     batch, n = _batch_rows(comps, "points")
     if n == 0:
         raise ValueError(f"{name} over an empty axis")
+    tree = name == "tree_sum"
     if not comps[0].is_cuda:
-        plain = tree_sum_plain if name == "tree_sum" else prefix_sum_plain
+        plain = tree_sum_plain if tree else prefix_sum_plain
         return plain(group_name, rebuild_coords(comps, cd))
-    outs = _points_out(comps, out_shape(comps[0].shape))
+    outs = _points_out(comps, comps[0].shape[:-1] if tree
+                       else comps[0].shape)
     if batch == 0:
         return rebuild_coords(outs, cd)
-    scratch = _points_out(comps, comps[0].shape)
-    # the tree's counts of arrived subtrees (at most ceil(n / 2) a row),
-    # the prefix's one grid-barrier word
-    words = batch * ((n + 1) // 2) if name == "tree_sum" else 1
+    # the tree's counts of arrived subtrees (at most ceil(n / 2) a row) and
+    # its scratch; the prefix's ticket and counts of arrived tiles a row
+    words = batch * ((n + 1) // 2) if tree else 1 + batch
     count = torch.zeros(words, dtype=torch.int32, device=comps[0].device)
     fn, curve = _group_entry(group_name, "oz_" + name)
+    scratch = [_points_out(comps, comps[0].shape)] if tree else []
     rc = _launch(fn, comps[0].device, cd, _addr_array(comps),
-                 _addr_array(scratch), batch, n, _addr_array(outs),
+                 *map(_addr_array, scratch), batch, n, _addr_array(outs),
                  count.data_ptr())
     _check(rc, name)
     CURVE_LAUNCHES[curve][name] += 1
@@ -1077,17 +1079,21 @@ def tree_sum(group_name: str, p):
     [8, *batch], element 0 of the Hillis-Steele suffix fold of
     group_ops.tree_reduce, computed as the pairwise tree that gives it
     (n - 1 adds and the adds with the identity past the end): subtrees of
-    128 leaves on blocks, each add on two threads, the roots of a row's
+    256 leaves on blocks, each add on two threads, the roots of a row's
     subtrees added by the last of its blocks to finish."""
-    return _levels_launch(group_name, p, "tree_sum", lambda s: s[:-1])
+    return _levels_launch(group_name, p, "tree_sum")
 
 
 def prefix_sum(group_name: str, p):
-    """Inclusive prefix sums along the last axis in one launch: the full
-    Hillis-Steele dataflow (level l adds element j - 2^l into element j,
-    the identity below 0) between two buffers, the levels meeting at a
-    grid-wide barrier."""
-    return _levels_launch(group_name, p, "prefix_sum", lambda s: s)
+    """Inclusive prefix sums along the last axis in one launch: every add
+    of the Hillis-Steele dataflow (level l adds element j - 2^l into
+    element j, the identity below 0), levels 0 .. 3 on tiles of a row in
+    shared memory (each recomputing the 15 elements before it), then,
+    after one wait for the row's tiles, the later levels on each residue
+    class mod 16 of a row (which they never leave) in shared memory; each
+    add on one thread (G1) or two (G2), G1's adds of the identity as (X Y,
+    Y^2, Y Z), their words."""
+    return _levels_launch(group_name, p, "prefix_sum")
 
 
 # ---------------------------------------------------------------------------

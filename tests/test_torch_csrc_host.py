@@ -413,11 +413,10 @@ struct HostSched {
 // op: 0 window table (a = base, b = powers, n = npow, x = w, y = outerc,
 // batch = the rounds run per window before the grid's), 1 lane row sums
 // (a = points [batch, n], x = width; the two threads of a pair as two host
-// threads; a lane whose halves differ is stored as zeros), 2 tree (a =
-// points, b = scratch), 3
-// prefix (a = points, b = scratch), 4 combine (a = window results [batch,
-// n], x = c; one emulated warp per row), 5 doubling chain (a = points [n],
-// x = times, y = every_step; one emulated warp per point)
+// threads; a lane whose halves differ is stored as zeros), 4 combine (a =
+// window results [batch, n], x = c; one emulated warp per row), 5
+// doubling chain (a = points [n], x = times, y = every_step; one emulated
+// warp per point)
 template <class C>
 static void chain(int op, int group, uint32_t* const* a, uint32_t* const* b,
                   uint32_t* const* out, long batch, long n, int x, int y) {
@@ -437,8 +436,6 @@ static void chain(int op, int group, uint32_t* const* a, uint32_t* const* b,
       store_point(acc[0], po, batch * x, i);
       if (!pt_equal(acc[0], acc[1])) store_point(Pt<C>{}, po, batch * x, i);
     }
-  } else if (op == 3) {
-    prefix_sum_rows<C>(pa, ptrs(b, group), po, batch, n, sched);
   } else if (op == 4) {
     typedef typename lanes::Spread<C, HostLanes>::type S;
     for (long i = 0; i < batch; i++)
@@ -532,6 +529,92 @@ extern "C" void tree_op(int group, int k, int reverse, uint32_t* const* a,
 }
 
 extern "C" int tree_log() { return kTreeLog; }
+
+// prefix_sum_item's barrier, count of arrivals and wait for a block whose
+// threads are host threads (``tid``: the calling thread's index); a wait
+// on a row whose tiles have not all arrived (an item run before a tile it
+// needs) sets ``bad`` and goes on
+struct HostPrefixBlock {
+  HostBarrier bar;
+  bool bad = false;
+  static thread_local unsigned tid;
+  void sync() { bar.barrier(); }
+  void arrive(unsigned* c, unsigned first, unsigned last) {
+    bar.barrier();
+    if (tid == 0)
+      for (unsigned b = first; b <= last; b++) c[b]++;
+  }
+  void wait(const unsigned* c, unsigned target) {
+    if (tid == 0 && *c != target) bad = true;
+    bar.barrier();
+  }
+};
+thread_local unsigned HostPrefixBlock::tid = 0;
+
+// the items of prefix_sum_item (classes mod 2^m, T threads a worker,
+// blocks of B threads, R rounds of workers a tile's first level, buffers
+// of S slots, identity adds by ID, as prefix.cuh launches them) one after
+// the other, each on B host threads: the tiles, then the classes, each
+// phase in order or (``reverse``) last first.  Returns 1 if an item
+// waited on a row whose tiles had not all arrived.
+template <class C, int T, int B, int R, int S, bool ID>
+static int prefix_items(int group, int m, uint32_t* const* a,
+                        uint32_t* const* out, long batch, long n,
+                        bool reverse) {
+  const PrefixShape s = prefix_shape(batch, n, m, B / T, R, S);
+  std::vector<uint32_t> smem(2 * 3 * coord_dim(group) * 8 * S);
+  std::vector<unsigned> count(batch, 0u);
+  const PointPtrs pa = ptrs(a, group), po = ptrs(out, group);
+  int bad = 0;
+  for (size_t k = 0; k < s.items; k++) {
+    const size_t item = !reverse ? k
+                        : k < s.tiles ? s.tiles - 1 - k
+                                      : s.tiles + s.items - 1 - k;
+    HostPrefixBlock sched{HostBarrier{B}};
+    std::unique_ptr<PairSlots[]> pairs(new PairSlots[B / 2 + 1]);
+    std::vector<std::thread> threads;
+    for (unsigned t = 0; t < (unsigned)B; t++)
+      threads.emplace_back([&, t] {
+        HostPair::me = t & 1;
+        HostPair::at = &pairs[t >> 1];
+        HostPrefixBlock::tid = t;
+        prefix_sum_item<C, HostPair, T, S, ID>(pa, po, s, item, t, B,
+                                               smem.data(), count.data(),
+                                               sched);
+      });
+    for (std::thread& th : threads) th.join();
+    bad |= sched.bad;
+  }
+  return bad;
+}
+
+// the prefix over each row of a = points [batch, n] into out: ``own`` 0
+// with classes mod 2^2 on blocks of 4 pairs (buffers of 9 slots), the adds
+// of the identity by pt_add_identity; 1 as the library's kernel for the
+// group (rcb.cuh PrefixConfig)
+extern "C" int prefix_op(int group, int own, int reverse, uint32_t* const* a,
+                         uint32_t* const* out, long batch, long n) {
+  int bad = 0;
+  with_group(group, [&](auto c) {
+    typedef decltype(c) C;
+    typedef PrefixOf<C> K;
+    if (own)
+      bad = prefix_items<C, K::kThreads, K::kBlock, K::kRounds, K::kSlots,
+                         K::kIdentity>(group, K::kLog, a, out, batch, n,
+                                       reverse != 0);
+    else
+      bad = prefix_items<C, 2, 8, 2, 9, true>(group, 2, a, out, batch, n,
+                                              reverse != 0);
+  });
+  return bad;
+}
+
+// the library's class modulus (log2) for a group
+extern "C" int prefix_log(int group) {
+  int m = 0;
+  with_group(group, [&](auto c) { m = PrefixOf<decltype(c)>::kLog; });
+  return m;
+}
 
 // add_point_pair over a batch of n: the grid's threads 0 .. ``threads``
 // (past 2 n: the warp's threads past the end) in pairs, one pair at a time
@@ -860,15 +943,30 @@ def _tree(host_lib, gname, pts, batch, n, k, reverse=False):
     return outs
 
 
+def _prefix(host_lib, gname, pts, batch, n, own, reverse=False):
+    """rcb.cuh prefix_sum_item over rows [batch, n]: its items on emulated
+    blocks, tiles then classes, each phase in order or last first
+    (``reverse``), classes mod 2^2 on blocks of 4 pairs (``own`` False) or
+    as the library's kernel."""
+    fa = _flat(pts)
+    outs = [torch.zeros_like(t) for t in fa]
+    bad = host_lib.prefix_op(GROUP_IDS[gname], int(own), int(reverse),
+                             _ptrs(fa), _ptrs(outs), ctypes.c_long(batch),
+                             ctypes.c_long(n))
+    assert bad == 0, "an item ran before a tile of its row"
+    return outs
+
+
 @pytest.mark.parametrize("gname", sorted(GROUP_IDS))
 def test_point_chains(host_lib, gname):
     """The window table round by round (every round across the grid, two
     on one block first, all on one block), the lane row sums, the pairwise
     tree on emulated blocks in tiers of 2^2 and of the kernel's 2^7 leaves
     (with its adds of the identity at n = 13, none at n = 8, a copy at n =
-    1), the Hillis-Steele prefix through two buffers and the window
-    combine on emulated warps (two rows), against the plain versions'
-    loops."""
+    1), the Hillis-Steele prefix in its two phases on emulated blocks
+    (classes mod 2^2: tiles crossing rows at n = 13 and 8, a copy at n =
+    1) and the window combine on emulated warps (two rows), against the
+    plain versions' loops."""
     from octopuszk_tpu_torch.curves import group_ops
     g = _group(gname)
     rng = random.Random(5)
@@ -896,13 +994,12 @@ def test_point_chains(host_lib, gname):
 
     for n in (13, 8, 1):
         sub = group_ops._map_coords(rows, lambda c: c[..., :n].contiguous())
-        scratch = group_ops._map_coords(sub, torch.empty_like)
         want = kernels.tree_sum_plain(gname, sub)
         for k in (2, host_lib.tree_log()):
             got = _tree(host_lib, gname, sub, 2, n, k)
             assert all(torch.equal(x, y)
                        for x, y in zip(got, _flat(want))), (n, k)
-        got = _chain(host_lib, 3, gname, sub, scratch, (8, 2, n), 2, n)
+        got = _prefix(host_lib, gname, sub, 2, n, False)
         want = kernels.prefix_sum_plain(gname, sub)
         assert all(torch.equal(x, y) for x, y in zip(got, _flat(want))), n
 
@@ -913,7 +1010,7 @@ def test_point_chains(host_lib, gname):
 
 
 @pytest.mark.parametrize("kind", ["double_chain", "row_sums", "tree",
-                                  "pair_add"])
+                                  "pair_add", "prefix"])
 @pytest.mark.parametrize("gname", sorted(GROUP_IDS))
 def test_warp_chains(host_lib, gname, kind):
     """Kernel (e)'s doubling chain on one emulated warp per point (times =
@@ -925,14 +1022,21 @@ def test_warp_chains(host_lib, gname, kind):
     emulated blocks (tiers of 2^2 at n = 2^2 + 5 and 2^4 + 5, three
     tiers, and of the kernel's 2^7 at n = 2^7 + 5, so a row spans two
     subtrees and the last adds the identity; batch 1 and 2; blocks in
-    order and last first); and kernel (d)'s G2 add on two threads a point
+    order and last first); kernel (d)'s G2 add on two threads a point
     (``add_point_pair``: 20 points, the identity, P + P and P + (-P) among
-    them, and the warp's threads past the end), against the plain
-    versions."""
+    them, and the warp's threads past the end); and the prefix of
+    ``prefix_sum`` in its two phases on emulated blocks, tiles then
+    classes, each phase in order and last first (classes mod 2^2 on blocks
+    of 4 pairs and as the library's kernel; n = 1, 4, 8, 13, 2^m - 1, 2^m
+    + 3, 2^(m+2) + 5, so phase 1 alone, tiles crossing rows, a row's tail,
+    classes of two lengths, a phase 2 of one level (in place on the
+    output) and of three (in the buffers); with m = 2 also n = 41, whose
+    classes of 11 exceed the 9 slots and run on the output in place; batch
+    1 and 2), against the plain versions."""
     from octopuszk_tpu_torch.curves import group_ops
     g = _group(gname)
     rng = random.Random(6)
-    if kind in ("tree", "pair_add"):
+    if kind in ("tree", "pair_add", "prefix"):
         host = [g.host.mul(g.generator_affine, rng.randrange(1, 1 << 64))
                 for _ in range(20)]
         host[3] = None
@@ -950,6 +1054,23 @@ def test_warp_chains(host_lib, gname, kind):
                     got = _tree(host_lib, gname, pts, batch, n, k, reverse)
                     assert all(torch.equal(x, y) for x, y in zip(got, want)), \
                         (k, n, batch, reverse)
+    elif kind == "prefix":
+        for own in (False, True):
+            m = host_lib.prefix_log(GROUP_IDS[gname]) if own else 2
+            ns = [1, 4, 8, 13, (1 << m) - 1, (1 << m) + 3,
+                  (4 << m) + 5] + ([] if own else [41])
+            for n in ns:
+                for batch in (1, 2):
+                    pts = group_ops._map_coords(
+                        g.points_to_device((host * 7)[:batch * n], "cpu"),
+                        lambda c: c.reshape(8, batch, n).contiguous())
+                    want = _flat(kernels.prefix_sum_plain(gname, pts))
+                    for reverse in (False, True):
+                        got = _prefix(host_lib, gname, pts, batch, n, own,
+                                      reverse)
+                        assert all(torch.equal(x, y)
+                                   for x, y in zip(got, want)), \
+                            (own, n, batch, reverse)
     elif kind == "pair_add":
         qs = [host[(i + 5) % 20] for i in range(20)]
         qs[1] = host[1]                            # P + P
