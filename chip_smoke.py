@@ -61,6 +61,13 @@ records) times the host marshaling of 2^20 ints with the native library
 words are equal and which one the prover's ``assignment`` stage takes
 (numpy's: ``bigint.ints_to_words``).
 
+Then the packed path once more at four times the constraints (``path
+2^22`` at the default ``--log2``: ``scripts/large_prove.py``'s ``run``, one
+setup, prove and verify, a tampered input rejected, each stage's device
+memory in the path line's ``stage_bytes``); setup must cut each query's
+fixed-base evaluation into two chunks of 2^``msm.FIXED_CHUNK_LOG`` scalars
+or more.
+
 Then it runs the port's gather experiment (``gather``: kernel i against
 ``torch.index_select`` over 2^21 rows of 128 words), checks that an index
 out of range makes kernel i fail (in child processes), and runs every
@@ -150,6 +157,7 @@ from octopuszk_tpu_torch.models.groth16 import (
 from octopuszk_tpu_torch.ops import kernels, msm, ntt
 from octopuszk_tpu_torch.parallel import dgroth16, mesh as pmesh
 from octopuszk_tpu_torch.relations import construct
+from octopuszk_tpu_torch.scripts import large_prove
 from octopuszk_tpu_torch.utils import bigint, native
 
 QUERIES = ("query_a", "query_b_g1", "query_b_g2", "query_h", "delta_abc_g1")
@@ -1437,6 +1445,27 @@ def run_dist(dev, log2: int, crs, proof):
     return {"dist": counts, "dist crs": ccounts}
 
 
+def run_large(dev, log2: int):
+    """The packed path at 2^log2 constraints through
+    ``scripts/large_prove.py``'s ``run``: construct, one setup, one prove,
+    verify, a tampered input rejected, each stage's device memory
+    (``stage_bytes``) in the path line.  Fails unless the proof verifies,
+    the tampered input is rejected and setup cut each query's fixed-base
+    evaluation into chunks of 2^FIXED_CHUNK_LOG scalars (four at 2^22, two
+    or more from 2^21).  Returns the launch counts."""
+    name = f"2^{log2}"
+    out, launches = drive(dev, name, lambda: large_prove.run(log2, dev),
+                          required=_GROTH16_KERNELS)
+    emit({"path": {"name": name, **out, "launches": launches}})
+    chunks = out["fixed_base_chunks_per_query"]
+    want = -(-out["query_rows"] // (1 << msm.FIXED_CHUNK_LOG))
+    if not (out["ok"] and chunks == want and (chunks >= 2 or log2 < 21)):
+        raise SystemExit(f"the {name} path produced a wrong result or did "
+                         f"not chunk its fixed-base evaluation ({chunks} "
+                         f"chunks a query, {want} planned)")
+    return {name: launches}
+
+
 def run_gather(dev, log2: int):
     """The port's gather experiment over 2^(log2+1) rows, as its command
     line runs it (it prints its two lines).  Returns its launch counts."""
@@ -1724,6 +1753,9 @@ def main() -> int:
         counts.update(run_dist(dev, args.log2, proving_inputs[0],
                                packed_proof))
         del proving_inputs, packed_proof
+        torch.cuda.empty_cache()
+    with phase(f"path 2^{args.log2 + 2}"):
+        counts.update(run_large(dev, args.log2 + 2))
         torch.cuda.empty_cache()
     with phase("gather"):
         counts["gather"] = run_gather(dev, args.log2)

@@ -23,6 +23,7 @@ from octopuszk_tpu_torch.models.groth16.objects import Proof, ProvingKey
 from octopuszk_tpu_torch.ops import msm
 from octopuszk_tpu_torch.reductions.r1cs_to_qap import domain_size, qap_witness
 from octopuszk_tpu_torch.relations.r1cs import assignment_to_device, is_satisfied
+from octopuszk_tpu_torch.utils import device as _device
 
 
 def _single_to_host(grp, p):
@@ -35,7 +36,8 @@ def _queries(pk: ProvingKey):
 
 
 def prove(pk: ProvingKey, primary, auxiliary, seed: int = 2,
-          config=None, curve=None, stage_seconds=None) -> Proof:
+          config=None, curve=None, stage_seconds=None,
+          stage_bytes=None) -> Proof:
     """primary/auxiliary: host int assignments (primary[0] == 1).  Runs on
     the device the key's R1CS lies on.  Packed queries lie there or in host
     memory (``serialize.load_crs(stream=True)``), from where the MSMs stage
@@ -43,7 +45,9 @@ def prove(pk: ProvingKey, primary, auxiliary, seed: int = 2,
     ``config.debug`` turns on the satisfiability and degree checks;
     ``stage_seconds`` is an optional dict that receives each stage's wall
     time, and the witness map's split (``witness-map:matvecs``,
-    ``:transforms``, ``:h``, parts of ``witness-map``)."""
+    ``:transforms``, ``:h``, parts of ``witness-map``); ``stage_bytes``,
+    an optional dict, receives at the same marks on a CUDA device the bytes
+    allocated and the running peak (``device.memory_mark``)."""
     if curve is None:
         from octopuszk_tpu_torch.curves.family import bn254a
         curve = bn254a()
@@ -69,6 +73,8 @@ def prove(pk: ProvingKey, primary, auxiliary, seed: int = 2,
                 torch.cuda.synchronize(dev)
             stage_seconds[label] = time.perf_counter() - t0
             t0 = time.perf_counter()
+        if stage_bytes is not None and dev.type == "cuda":
+            stage_bytes[label] = _device.memory_mark(dev)
 
     n = domain_size(r1cs)
     z = assignment_to_device(fr, list(primary) + list(auxiliary), dev)

@@ -4,7 +4,8 @@
   scalars; returns [s_i]G for each i.  The window table is built on the
   device by doubling; large batches pack the table into affine rows and
   evaluate with one ``scan_accumulate_mixed_total`` launch (one lane per
-  scalar, one row per window).
+  scalar, one row per window).  ``fixed_base_msm_packed`` (setup's) runs
+  it in chunks of 2^FIXED_CHUNK_LOG scalars into packed affine rows.
 
 * **Variable-base Pippenger over a packed base** (``pippenger_msm_packed``,
   ``pippenger_double_msm_packed``): signed windowed digits, one stable sort
@@ -144,6 +145,11 @@ def _choose_w(n: int) -> int:
 # (affine table rows + the fused mixed-add accumulation); below it the
 # table and pack overhead does not amortize
 FIXED_PACKED_MIN = 1 << 14
+# scalars a chunk of ``fixed_base_msm_packed``: the reference's name, not
+# its value (2^17, sized for a TPU's 16 GB).  The card holds 80 GB, five
+# times as much; 2^21 keeps the main path's 2^21-scalar queries at one
+# chunk and bounds the transients of a 2^25-scalar query to a sixteenth
+FIXED_CHUNK_LOG = 21
 
 
 def _choose_w_packed(n: int) -> int:
@@ -201,6 +207,27 @@ def fixed_base_msm(group, base_point, scalars_raw, w: int | None = None,
         pts = _map_coords(table.data, lambda c: c[:, win][:, digits[win]])
         acc = group.add(acc, pts)
     return acc
+
+
+def fixed_base_msm_packed(group, table: FixedBaseTable, scalars_raw,
+                          pad_to: int):
+    """[s_i] G as packed affine rows int32[pad_to, 16 | 32], identity rows
+    past n, for the base of ``table`` (``fixed_base_table`` for the whole
+    batch): ``fixed_base_msm`` then ``points_to_packed`` on chunks of
+    2^FIXED_CHUNK_LOG scalars, each written into the one output allocated
+    up front, so that only a chunk's digits, points and affine conversion
+    are transient.  An affine point has one form, so the rows do not depend
+    on the chunk."""
+    n = scalars_raw.shape[1]
+    out = torch.empty((pad_to, 2 * NUM_WORDS * group.coord_dim),
+                      dtype=torch.int32, device=scalars_raw.device)
+    out[n:] = 0
+    chunk = 1 << FIXED_CHUNK_LOG
+    for lo in range(0, n, chunk):
+        hi = min(n, lo + chunk)
+        pts = fixed_base_msm(group, None, scalars_raw[:, lo:hi], table=table)
+        out[lo:hi] = points_to_packed(group, pts)
+    return out
 
 
 def _fixed_base_msm_packed(group, table: FixedBaseTable, digits):

@@ -16,3 +16,11 @@ def resolve(device=None) -> torch.device:
             "a CUDA device was requested and none is available; "
             "pass device='cpu' to run the plain PyTorch path")
     return device
+
+
+def memory_mark(device) -> dict:
+    """The caching allocator's bytes on a CUDA device: live now
+    (``allocated``) and the running peak since the last reset
+    (``peak``)."""
+    return {"allocated": torch.cuda.memory_allocated(device),
+            "peak": torch.cuda.max_memory_allocated(device)}

@@ -73,6 +73,40 @@ def test_setup_equals_reference(reference, ported):
     assert vk.gamma_abc_g1 == rvk.gamma_abc_g1 and len(vk.gamma_abc_g1) == 3
 
 
+SETUP_STAGES = ["qap-instance", "scalars", "window-tables", "enc-A(g1)",
+                "enc-B(g1)", "enc-B(g2)", "enc-deltaABC(g1)", "enc-H(g1)",
+                "enc-gammaABC(g1)", "host-points+pairing"]
+
+
+def test_setup_in_chunks_equals_reference(reference, monkeypatch):
+    """setup with its fixed-base evaluation on the packed path (from one
+    scalar) in chunks of 2^5 scalars: the 64-scalar queries in two chunks
+    each (window width 4 keeps the tables small).  The packed queries and
+    gammaABC equal the reference's; ``stage_bytes`` stays empty on the CPU
+    and ``stage_seconds`` keeps its stages."""
+    rcrs, *_ = reference
+    monkeypatch.setattr(msm, "FIXED_PACKED_MIN", 1)
+    monkeypatch.setattr(msm, "FIXED_CHUNK_LOG", 5)
+    monkeypatch.setattr(msm, "_choose_w_packed", lambda n: 4)
+    chunks = []
+    whole = msm.fixed_base_msm
+    monkeypatch.setattr(msm, "fixed_base_msm", lambda g, b, s, **kw: (
+        chunks.append(s.shape[1]), whole(g, b, s, **kw))[1])
+    r1cs, *_ = construct.serial_construct(14, 3, seed=7, device="cpu")
+    stages, stage_bytes = {}, {}
+    crs = setup.setup(r1cs, seed=8, stage_seconds=stages,
+                      stage_bytes=stage_bytes)
+    assert chunks == [32] * 2 * len(QUERIES) + [3]   # + gammaABC's inputs
+    pk = crs.proving_key
+    for q in QUERIES:
+        np.testing.assert_array_equal(
+            convert.packed_to_ref(getattr(pk, q)),
+            np.asarray(getattr(rcrs.proving_key, q)))
+    rvk = convert.verification_key_from_ref(rcrs.verification_key)
+    assert crs.verification_key.gamma_abc_g1 == rvk.gamma_abc_g1
+    assert list(stages) == SETUP_STAGES and stage_bytes == {}
+
+
 def test_prove_on_reference_key_equals_reference(reference):
     rcrs, primary, aux, rproof = reference
     pk = convert.proving_key_from_ref(rcrs.proving_key, device="cpu")
@@ -88,12 +122,13 @@ def port_proof(ported):
     saved = msm.NAIVE_THRESHOLD
     msm.NAIVE_THRESHOLD = 0
     try:
-        stages = {}
+        stages, stage_bytes = {}, {}
         proof = prover.prove(crs.proving_key, primary, aux, seed=9,
-                             stage_seconds=stages)
+                             stage_seconds=stages, stage_bytes=stage_bytes)
     finally:
         msm.NAIVE_THRESHOLD = saved
     assert "msm-B(g1+g2)" in stages
+    assert stage_bytes == {}          # device memory is marked on a card only
     return proof
 
 

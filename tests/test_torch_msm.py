@@ -146,8 +146,24 @@ def test_fixed_base_msm_small(bases, name):
     assert got == [tg.host.mul(base, k) for k in ks]
 
 
+@pytest.fixture(scope="module")
+def reference_fixed_g1(bases):
+    """The reference's packed fixed-base evaluation of _scalars(46, 21) on
+    G1's pts[9] at w = 6, as affine host ints (its XLA:CPU compile is most
+    of a test's time, so the tests below share it)."""
+    rg, _, pts, _, _ = bases["G1"]
+    saved = rmsm.FIXED_PACKED_MIN
+    rmsm.FIXED_PACKED_MIN = 1
+    try:
+        return rg.points_to_host(rmsm._fixed_base_msm_packed(
+            rg, rg.point_to_device(pts[9]), _rdev(_scalars(46, 21)), 6))
+    finally:
+        rmsm.FIXED_PACKED_MIN = saved
+
+
 @pytest.mark.parametrize("name", ["G1", "G2"])
-def test_fixed_base_msm_packed_direct(bases, name, monkeypatch):
+def test_fixed_base_msm_packed_direct(bases, name, monkeypatch,
+                                      reference_fixed_g1):
     """The packed fixed-base path (setup's path from 2^14 scalars) called
     at a small window width, with one table serving two batches."""
     rg, tg, pts, _, _ = bases[name]
@@ -164,10 +180,37 @@ def test_fixed_base_msm_packed_direct(bases, name, monkeypatch):
         tg, dev_base, _dev(ks[::-1]), table=table))
     assert again == got[::-1]
     if name == "G1":
-        monkeypatch.setattr(rmsm, "FIXED_PACKED_MIN", 1)
-        want = rg.points_to_host(rmsm._fixed_base_msm_packed(
-            rg, rg.point_to_device(base), _rdev(ks), 6))
-        assert got == want
+        assert got == reference_fixed_g1
+
+
+@pytest.mark.parametrize("name", ["G1", "G2"])
+def test_fixed_base_msm_packed_chunks(bases, name, monkeypatch,
+                                      reference_fixed_g1):
+    """setup's chunked evaluation (``fixed_base_msm_packed``) with
+    FIXED_CHUNK_LOG lowered to 3: the 21 scalars of the direct test above
+    in three chunks (8, 8, 5), written into 32 rows.  The rows equal the
+    one-chunk result's word for word; the points are the host oracle's and
+    (G1) the reference's, the identity past the scalars."""
+    rg, tg, pts, _, _ = bases[name]
+    ks = _scalars(46, 21)
+    base = pts[9]
+    monkeypatch.setattr(msm, "FIXED_PACKED_MIN", 1)
+    dev_base = tg.point_to_device(base, "cpu")
+    table = msm.fixed_base_table(tg, dev_base, len(ks), w=6)
+    one = msm.fixed_base_msm_packed(tg, table, _dev(ks), 32)
+    chunks = []
+    whole = msm.fixed_base_msm
+    monkeypatch.setattr(msm, "fixed_base_msm", lambda g, b, s, **kw: (
+        chunks.append(s.shape[1]), whole(g, b, s, **kw))[1])
+    monkeypatch.setattr(msm, "FIXED_CHUNK_LOG", 3)
+    got = msm.fixed_base_msm_packed(tg, table, _dev(ks), 32)
+    assert chunks == [8, 8, 5]
+    assert got.shape == (32, 16 * tg.coord_dim) and got.dtype == torch.int32
+    assert torch.equal(got, one)
+    host = tg.points_to_host(msm.packed_to_points(tg, got))
+    assert host == [tg.host.mul(base, k) for k in ks] + [None] * 11
+    if name == "G1":
+        assert host[:21] == reference_fixed_g1
 
 
 def test_pippenger_host_matches_naive(bases):
