@@ -62,11 +62,14 @@ words are equal and which one the prover's ``assignment`` stage takes
 (numpy's: ``bigint.ints_to_words``).
 
 Then the packed path once more at four times the constraints (``path
-2^22`` at the default ``--log2``: ``scripts/large_prove.py``'s ``run``, one
-setup, prove and verify, a tampered input rejected, each stage's device
-memory in the path line's ``stage_bytes``); setup must cut each query's
-fixed-base evaluation into two chunks of 2^``msm.FIXED_CHUNK_LOG`` scalars
-or more.
+2^22`` at the default ``--log2``: ``scripts/large_prove.py``'s ``run`` in
+its streamed form, one setup, a prove with the queries on the card and the
+same prove with them in pinned host memory, staged to the card chunk by
+chunk; each verified, a tampered input rejected, each stage's device
+memory in the path line's ``stage_bytes`` and each prove's own peak in
+``stage_peak_bytes``, the bytes pinned and staged); the two proofs must be
+equal word for word, and setup must cut each query's fixed-base
+evaluation into two chunks of 2^``msm.FIXED_CHUNK_LOG`` scalars or more.
 
 Then it runs the port's gather experiment (``gather``: kernel i against
 ``torch.index_select`` over 2^21 rows of 128 words), checks that an index
@@ -123,7 +126,10 @@ warp each; ``prefix_sum`` also at three short rows of 37, so that a row
 has a tail past its tiles and classes of two lengths), and so has
 ``ntt_block``, which runs every stage of a
 sub-transform in one launch: the two 4-step passes of the witness map's
-coset NTT and coset iNTT, and one 2^12 transform.  ``butterfly``, the
+coset NTT and coset iNTT, one 2^12 transform, and the coset NTT routed
+through the nested 4-step (the cap lowered for the call, so that columns
+and rows are 4-steps of their own) against the one-level 4-step, bit for
+bit.  ``butterfly``, the
 reference's per-stage kernel, keeps its record though no path launches it.
 
 ``--log2 N`` cuts the constraint count to 2^N (never below 2^13 on the
@@ -553,6 +559,52 @@ def ntt_records(record, gen, dev, log2: int, spec, tag: str, rand):
         False, None, ntt._scale(spec, L1, dev)[:, :, None])
 
 
+def nested_ntt_record(record, records, gen, dev, log2: int, spec,
+                      tag: str):
+    """``ntt_block`` through the nested 4-step: the coset NTT of 2^log2
+    (BN254a: the witness map's) with the sub-transform cap
+    (``ntt.BLOCK_MAX``) lowered for the call to half the columns' length,
+    so that columns and rows are 4-steps of their own, with their tables
+    applied by ``mont_mul`` (the route of a 2^25 domain's columns of 2^13
+    under the cap of 2^12).  Held bit for bit against the same transform
+    through the one-level 4-step on the kernels (``equals_one_level``, its
+    time ``one_level_ms``) and on ``ntt_block``'s plain version (``plain_ms``).
+    Bound: the one-level 4-step's work, one product a butterfly and one a
+    coset power and a twiddle; bytes: x, the output and the two tables."""
+    n = 1 << log2
+    R, C = 1 << ((log2 + 1) // 2), 1 << (log2 // 2)
+    cap = R // 2
+    x = rand_field(gen, (n,), dev)
+
+    def nested():
+        saved, ntt.BLOCK_MAX = ntt.BLOCK_MAX, cap
+        try:
+            return ntt.coset_ntt(spec, x)
+        finally:
+            ntt.BLOCK_MAX = saved
+
+    def one_level(block):
+        tw4 = ntt._four_step_twiddles(spec, R, C, False, dev)[..., None]
+        pre = ntt._coset_table(spec, n, False, dev).reshape(8, R, C, 1)
+        y = block(spec, x.reshape(8, R, C, 1),
+                  ntt._stage_twiddles(spec, R, False, dev), True, pre, tw4)
+        return block(spec, y.permute(0, 2, 1, 3),
+                     ntt._stage_twiddles(spec, C, False, dev), True, None,
+                     None).reshape(8, n)
+
+    record("ntt_block", f"{tag} 2^{log2} coset NTT through the nested "
+           f"4-step (cap 2^{cap.bit_length() - 1}: columns 2^{R.bit_length() - 1}"
+           f" and rows 2^{C.bit_length() - 1} as 4-steps)", [8, n], nested,
+           lambda: one_level(kernels.ntt_block_plain), 4 * ELEM_BYTES * n,
+           mads_per_product(spec) * (n // 2 * log2 + 2 * n))
+    one_ms, want = time_ms(lambda: one_level(kernels.ntt_block), dev, 5)
+    equal = bool(torch.equal(nested(), want))
+    records[-1].update(equals_one_level=equal, one_level_ms=one_ms)
+    if not equal:
+        raise SystemExit(f"the nested 4-step differs from the one-level "
+                         f"4-step: {records[-1]}")
+
+
 def check_test_field_kernels(dev, log2: int, int32_rate: float, reps: int):
     """The records of the test fields' library (SMALL, LARGE: the field
     kernels built for fields of no curve) at BN254a's main-path shapes:
@@ -673,6 +725,8 @@ def check_kernels(dev, log2: int, int32_rate: float, reps: int,
                    lambda: kernels.butterfly_plain(spec, a, b, w, dif),
                    5 * ELEM_BYTES * half, MADS_PER_MONT_MUL * half)
     ntt_records(record, gen, dev, log2, fr, "Fr", rand_field)
+    if curve == "bn254a":
+        nested_ntt_record(record, records, gen, dev, log2, fr, "Fr")
     # (b) mont_mul: Fr at the NTT size, Fq at the packed-query size
     for spec, tag, cnt in ((fr, "Fr", n), (fq, "Fq", 2 * n)):
         a, b = rand_field(gen, (cnt,), dev), rand_field(gen, (cnt,), dev)
@@ -1447,22 +1501,33 @@ def run_dist(dev, log2: int, crs, proof):
 
 def run_large(dev, log2: int):
     """The packed path at 2^log2 constraints through
-    ``scripts/large_prove.py``'s ``run``: construct, one setup, one prove,
-    verify, a tampered input rejected, each stage's device memory
-    (``stage_bytes``) in the path line.  Fails unless the proof verifies,
-    the tampered input is rejected and setup cut each query's fixed-base
-    evaluation into chunks of 2^FIXED_CHUNK_LOG scalars (four at 2^22, two
-    or more from 2^21).  Returns the launch counts."""
+    ``scripts/large_prove.py``'s ``run`` in its streamed form: construct,
+    one setup, a prove with the queries on the card, then the same prove
+    from pinned host memory; each verified, a tampered input rejected, each
+    stage's device memory (``stage_bytes``, ``stage_peak_bytes``: each
+    prove's own peak) and the bytes staged to the card in the path line.
+    Fails unless both proofs verify and are equal word for word, the
+    tampered input is rejected, the streamed prove staged every query from
+    host memory and setup cut each query's fixed-base evaluation into
+    chunks of 2^FIXED_CHUNK_LOG scalars (four at 2^22, two or more from
+    2^21).  Returns the launch counts."""
     name = f"2^{log2}"
-    out, launches = drive(dev, name, lambda: large_prove.run(log2, dev),
-                          required=_GROTH16_KERNELS)
+    out, launches = drive(
+        dev, name, lambda: large_prove.run(log2, dev, stream=True),
+        required=_GROTH16_KERNELS)
     emit({"path": {"name": name, **out, "launches": launches}})
     chunks = out["fixed_base_chunks_per_query"]
     want = -(-out["query_rows"] // (1 << msm.FIXED_CHUNK_LOG))
+    streamed = out["streamed"]
     if not (out["ok"] and chunks == want and (chunks >= 2 or log2 < 21)):
         raise SystemExit(f"the {name} path produced a wrong result or did "
                          f"not chunk its fixed-base evaluation ({chunks} "
                          f"chunks a query, {want} planned)")
+    if not (streamed["proof_equals_resident"] and streamed["all_pinned"]
+            and streamed["staged_bytes"] == streamed["pinned_host_bytes"]):
+        raise SystemExit(f"the {name} path's streamed prove differs from "
+                         f"the resident one or did not stage its queries: "
+                         f"{streamed}")
     return {name: launches}
 
 

@@ -18,6 +18,7 @@ the reference's.
 
 from __future__ import annotations
 
+import dataclasses
 import types
 
 import numpy as np
@@ -127,6 +128,33 @@ def _query_group(name: str, curve):
     return curve.g2 if name == "query_b_g2" else curve.g1
 
 
+def pinned(t: torch.Tensor) -> torch.Tensor:
+    """A copy of ``t`` in page-locked host memory, the source of an
+    asynchronous copy to the card.  Raises where the memory is not pinned
+    (no quiet fall back to pageable memory)."""
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t)
+    if not host.is_pinned():
+        raise RuntimeError(f"{t.nbytes} bytes of host memory not pinned")
+    return host
+
+
+def queries_to_host(pk: ProvingKey) -> ProvingKey:
+    """``pk`` with its packed queries in host memory, as
+    ``proving_key_from_ref(..., stream=True)`` leaves them: a query on the
+    card is copied to pinned memory, one in host memory stays as it is.
+    The prover then stages them to the R1CS's device chunk by chunk.  The
+    card's copies are freed once the caller drops ``pk``."""
+    if not pk.packed:
+        raise ValueError("only packed queries are kept in host memory")
+
+    def host(q):
+        return pinned(q) if q.is_cuda else q
+
+    return dataclasses.replace(
+        pk, **{name: host(getattr(pk, name)) for name in QUERIES})
+
+
 def proving_key_from_ref(pk, curve=None, device=None,
                          stream: bool = False) -> ProvingKey:
     """A reference proving key -> this package's: packed queries (128-limb
@@ -148,7 +176,7 @@ def proving_key_from_ref(pk, curve=None, device=None,
         if not packed:
             return points_from_ref(q, qdev)
         t = packed_from_ref(q, _query_group(name, curve), qdev)
-        return t.pin_memory() if streamed and device.type == "cuda" else t
+        return pinned(t) if streamed and device.type == "cuda" else t
 
     return ProvingKey(
         alpha_g1=pk.alpha_g1, beta_g1=pk.beta_g1, beta_g2=pk.beta_g2,

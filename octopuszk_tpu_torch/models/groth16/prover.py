@@ -89,6 +89,7 @@ def prove(pk: ProvingKey, primary, auxiliary, seed: int = 2,
 
     z_raw = fp.from_mont(fr, z)
     h_raw = fp.from_mont(fr, h)
+    del z, h                      # the MSMs read the raw words only
     ni = r1cs.num_inputs
     mark("witness-map")
     if stage_seconds is not None:

@@ -46,6 +46,7 @@ odd-order subgroup has Y = 0).
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 
 import torch
@@ -430,6 +431,11 @@ def _combine_windows(group, window_results, c: int):
     return kernels.combine_windows(group.ops.group_name, window_results, c)
 
 
+# bytes the packed MSMs staged from host memory, by the device they were
+# staged to (a base kept in host memory is copied there chunk by chunk)
+STAGED_BYTES = collections.Counter()
+
+
 def _msm_large_packed(groups, packeds, scalars_raw, num_win: int, c: int,
                       lanes: int, rows: int):
     """MSMs of the same scalars against one packed base per group (one for
@@ -446,7 +452,10 @@ def _msm_large_packed(groups, packeds, scalars_raw, num_win: int, c: int,
         lo, hi = k * chunk_m, (k + 1) * chunk_m
         d_sorted, idx2s = _sorted_digits(scalars_raw[:, lo:hi], num_win, c)
         for i, (group, packed) in enumerate(zip(groups, packeds)):
-            chunk = packed[lo:hi].to(device, non_blocking=True)
+            chunk = packed[lo:hi]
+            if chunk.device != device:
+                STAGED_BYTES[str(device)] += chunk.nbytes
+                chunk = chunk.to(device, non_blocking=True)
             w = _window_msm_mixed(group, chunk, d_sorted, idx2s, c, lanes,
                                   rows)
             acc[i] = w if acc[i] is None else group.add(acc[i], w)

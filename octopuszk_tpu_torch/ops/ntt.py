@@ -239,14 +239,14 @@ def lagrange_coeffs(spec: FieldSpec, n: int, t):
     dev = t.device
     w = powers(spec, _omega(spec, n, False, dev), n)            # omega^i
     t_col = t[:, None]
-    diff = fp.sub(spec, t_col.expand(w.shape), w)               # t - omega^i
+    diff = fp.sub(spec, t_col, w)                               # t - omega^i
     on_domain = fp.is_zero(diff)
-    one = fp.constant(spec.one_mont_words, (n,), dev)
+    one = fp.constant(spec.one_mont_words, (1,), dev)
     if bool(on_domain.any()):
         return torch.where(on_domain, one, torch.zeros_like(one))
     inv_diff = fp.batch_inv_rows(spec, diff)                    # one launch
     tn = fp.pow_const(spec, t_col, n)                           # [8, 1]
-    zt_over_n = fp.mont_mul(spec, fp.sub(spec, tn, one[:, :1]),
+    zt_over_n = fp.mont_mul(spec, fp.sub(spec, tn, one),
                             _elem(spec, pow(n, -1, spec.p), dev)[:, None])
     return fp.mont_mul(spec, fp.mont_mul(spec, w, inv_diff), zt_over_n)
 

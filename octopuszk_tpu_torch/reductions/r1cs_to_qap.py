@@ -50,10 +50,9 @@ def qap_instance(spec: FieldSpec, r1cs: R1CS, t: int) -> QAPInstance:
     at = rmatvec(spec, r1cs.a, w)
     bt = rmatvec(spec, r1cs.b, w)
     ct = rmatvec(spec, r1cs.c, w)
-    # input consistency: At_i += L_{nc+i}(t) for i < numInputs
-    consist = torch.zeros_like(at)
-    consist[:, :ni] = lag[:, nc:nc + ni]
-    at = fp.add(spec, at, consist)
+    # input consistency: At_i += L_{nc+i}(t) for i < numInputs (the
+    # reference adds a vector that is zero past ni: the same words)
+    at[:, :ni] = fp.add(spec, at[:, :ni], lag[:, nc:nc + ni])
     ht = ntt.powers(spec, t_mont, n + 1)
     zt = ntt.compute_z_at(spec, n, t)
     return QAPInstance(at=at, bt=bt, ct=ct, ht=ht, zt=zt, t=t,
@@ -88,10 +87,12 @@ def qap_witness(spec: FieldSpec, r1cs: R1CS, n: int, z, stage_seconds=None):
 
     abc = [evals(r1cs.a, True), evals(r1cs.b, False), evals(r1cs.c, False)]
     mark("matvecs")
-    a_coset, b_coset, c_coset = (ntt.coset_ntt(spec, ntt.intt(spec, e))
-                                 for e in abc)
+    # each evaluation vector is freed as soon as its iNTT has read it
+    cosets = [ntt.coset_ntt(spec, ntt.intt(spec, abc.pop(0)))
+              for _ in range(3)]
     mark("transforms")
-    h_coset = kernels.mul_sub(spec, a_coset, b_coset, c_coset)
+    h_coset = kernels.mul_sub(spec, *cosets)
+    del cosets
     h_coset = ntt.divide_by_z_on_coset(spec, h_coset)
     h = ntt.coset_intt(spec, h_coset)             # [8, n]
     mark("h")

@@ -8,7 +8,12 @@ as integers, then reduced once (fp.reduce_sum_mont).  The sums are
 hierarchical, as in the reference: a host-precomputed *chunk* id splits
 each row (and each column, for the transpose) into chunks of <= 2^13
 entries, so that a limb sum stays below 2^31; chunk partials are
-canonicalized before the second-level sum.
+canonicalized before the second-level sum.  Each level runs over its
+entries in slices of 2^``MATVEC_CHUNK_LOG`` into one sum allocated up
+front, and canonicalizes that sum in slices of half as many columns, so
+that only a slice's gather, products and limbs, or its reduction, are
+transient.  The sums are exact integers, so the words do not depend on
+the slicing.
 """
 
 from __future__ import annotations
@@ -24,6 +29,13 @@ from octopuszk_tpu_torch.utils import device as _device
 from octopuszk_tpu_torch.utils.bigint import ints_to_words
 
 CHUNK = 1 << 13
+
+# entries a slice of the segment sums.  A slice's gather, products and
+# 16-bit limbs (int64[16, k]) hold about 350 B an entry, so 2^22 keeps them
+# near 1.5 GB whatever the size, and a matrix of the 2^20 path (A has about
+# 2.6 M entries) is still one slice.  Canonicalizing the int64[16, n] sums
+# holds about 600 B a column, so it runs on half as many columns a slice.
+MATVEC_CHUNK_LOG = 22
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,31 +118,55 @@ def _segment_sum(terms, seg, num_segments: int):
     return out.index_add_(1, seg, terms)
 
 
-def _segment_sum_field(spec, terms, seg1, seg1_to_seg2, n1: int, n2: int):
+def _sliced_sum(spec, terms_of, k: int, seg, num_segments: int):
+    """Exact segment sum of k Montgomery values: ``terms_of(lo, hi)`` gives
+    entries lo..hi as int32[8, hi - lo], ``seg`` int64[k] their segment
+    ids; their 16-bit limbs are summed slice by slice into one
+    int64[16, num_segments], which is then canonicalized in slices of half
+    as many columns.
+    Returns int32[8, num_segments] Montgomery."""
+    step = 1 << MATVEC_CHUNK_LOG
+    device = seg.device
+    wide = torch.zeros((2 * fp.W, num_segments), dtype=torch.int64,
+                       device=device)
+    for lo in range(0, k, step):
+        hi = min(k, lo + step)
+        wide.index_add_(1, seg[lo:hi], fp.split16(terms_of(lo, hi)))
+    out = torch.empty((fp.W, num_segments), dtype=torch.int32, device=device)
+    step = max(1, step // 2)
+    for lo in range(0, num_segments, step):
+        hi = min(num_segments, lo + step)
+        out[:, lo:hi] = fp.reduce_sum_mont(spec, wide[:, lo:hi])
+    return out
+
+
+def _segment_sum_field(spec, terms_of, k: int, seg1, seg1_to_seg2, n1: int,
+                       n2: int):
     """Hierarchical exact segment sum of Montgomery values.
 
-    terms: int32[8, k] Montgomery; seg1: int64[k] first-level ids (n1 of
-    them), seg1_to_seg2: int64[n1] second-level target ids; returns
-    int32[8, n2] Montgomery."""
-    part = fp.reduce_sum_mont(
-        spec, _segment_sum(fp.split16(terms), seg1, n1))
-    return fp.reduce_sum_mont(
-        spec, _segment_sum(fp.split16(part), seg1_to_seg2, n2))
+    terms_of(lo, hi): int32[8, hi - lo] Montgomery, entries lo..hi of k;
+    seg1: int64[k] first-level ids (n1 of them), seg1_to_seg2: int64[n1]
+    second-level target ids; returns int32[8, n2] Montgomery."""
+    part = _sliced_sum(spec, terms_of, k, seg1, n1)
+    return _sliced_sum(spec, lambda lo, hi: part[:, lo:hi], n1, seg1_to_seg2,
+                       n2)
 
 
 def matvec(spec: FieldSpec, m: SparseMatrix, z):
     """A @ z: z is int32[8, num_cols] Montgomery; result [8, num_rows]."""
-    terms = fp.mont_mul(spec, m.val, z[:, m.col])
     return _segment_sum_field(
-        spec, terms, m.row_chunk, m.row_chunk_seg,
+        spec, lambda lo, hi: fp.mont_mul(spec, m.val[:, lo:hi],
+                                         z[:, m.col[lo:hi]]),
+        m.nnz, m.row_chunk, m.row_chunk_seg,
         int(m.row_chunk_seg.shape[0]), m.num_rows)
 
 
 def rmatvec(spec: FieldSpec, m: SparseMatrix, w):
     """A.T @ w: w is int32[8, num_rows]; result [8, num_cols]."""
-    terms = fp.mont_mul(spec, m.val, w[:, m.row])
     return _segment_sum_field(
-        spec, terms, m.col_chunk, m.col_chunk_seg,
+        spec, lambda lo, hi: fp.mont_mul(spec, m.val[:, lo:hi],
+                                         w[:, m.row[lo:hi]]),
+        m.nnz, m.col_chunk, m.col_chunk_seg,
         int(m.col_chunk_seg.shape[0]), m.num_cols)
 
 

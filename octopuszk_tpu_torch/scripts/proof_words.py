@@ -4,10 +4,11 @@ digest of its words: ``serial_construct(2^log2 - 3, 3, seed=5)``,
 ``chip_smoke.py``'s packed and ``bn254b`` paths), then sha256 of the
 proof's affine coordinates as python ints.  Run it once with each of two
 commits' packages on the path: equal digests mean equal proofs.  With
-``setups`` above 1 the setup runs that many times on the same circuit and
-seed (the same CRS); the line then carries each setup stage's median
-seconds and the fixed-base (g) launches a setup, for comparing two commits'
-setups in one call.
+``setups`` above 1 the setup and the prove run that many times each on
+the same circuit and seeds (the same CRS and proof); the line then carries
+each setup stage's and each prove stage's median seconds (the witness
+map's split included) and the fixed-base (g) launches a setup, for
+comparing two commits in one call.
 
     python -m octopuszk_tpu_torch.scripts.proof_words [log2 [setups]]  # 20 1
     (cd <other checkout> && PYTHONPATH=$PWD python3 <this file> 20 5)
@@ -44,7 +45,11 @@ def main(log2: int = 20, setups: int = 1) -> list:
             crs = setup.setup(r1cs, seed=6, curve=cv,
                               stage_seconds=stages[-1])
         fixed = kernels.LAUNCHES["scan_accumulate_mixed_total"] - fixed0
-        proof = prover.prove(crs.proving_key, primary, aux, seed=7, curve=cv)
+        proves = []
+        for _ in range(setups):
+            proves.append({})
+            proof = prover.prove(crs.proving_key, primary, aux, seed=7,
+                                 curve=cv, stage_seconds=proves[-1])
         words = repr((proof.a, proof.b, proof.c)).encode()
         line = {"curve": name, "log2": log2,
                 "verify": verifier.verify(crs.verification_key, primary,
@@ -54,7 +59,9 @@ def main(log2: int = 20, setups: int = 1) -> list:
             line.update(setups=setups, fixed_base_launches_per_setup=(
                 fixed / setups), setup_seconds_median={
                     k: statistics.median(s[k] for s in stages)
-                    for k in stages[0]})
+                    for k in stages[0]}, prove_seconds_median={
+                    k: statistics.median(s[k] for s in proves)
+                    for k in proves[0]})
         print(json.dumps(line), flush=True)
         out.append(line)
     return out

@@ -281,6 +281,24 @@ def test_streamed_key_proves_the_same(reference, reference_file):
     assert (proof.a, proof.b, proof.c) == (rproof.a, rproof.b, rproof.c)
 
 
+def test_queries_moved_to_host_prove_the_same(ported, port_proof):
+    """A key whose packed queries were moved to host memory in the process
+    (``convert.queries_to_host``: on the card, pinned copies, the card's
+    freed with the old key) proves to the resident key's proof.  On the
+    CPU the queries are in host memory already and stay as they are; an
+    unpacked key is refused."""
+    crs, primary, aux = ported
+    pk = convert.queries_to_host(crs.proving_key)
+    assert pk.packed and pk.r1cs is crs.proving_key.r1cs
+    for q in QUERIES:
+        assert getattr(pk, q) is getattr(crs.proving_key, q), q
+    proof = prover.prove(pk, primary, aux, seed=9)
+    assert (proof.a, proof.b, proof.c) == (port_proof.a, port_proof.b,
+                                           port_proof.c)
+    with pytest.raises(ValueError, match="packed"):
+        convert.queries_to_host(dataclasses.replace(pk, packed=False))
+
+
 def test_proof_round_trip(reference, port_proof, tmp_path):
     *_, rproof = reference
     path = str(tmp_path / "proof.json")
